@@ -1,0 +1,265 @@
+"""Benchmark evaluation CLI of the port.
+
+Counterpart of the repository's `evaluate.py` (JAX):
+
+  python -m tepose_tpu_torch.evaluate --dataset 3dpw \
+      --cfg configs/repr_wopw_3dpw_model.yaml [--gpu 0|cpu]
+  python -m tepose_tpu_torch.evaluate --synthetic --dataset 3dpw \
+      --cfg configs/repr_wopw_3dpw_model.yaml      # generated data
+
+Videos are bucketed by length, padded and evaluated in batches through
+`eval.evaluator.eval_rollout`, with the same bucket and batch defaults as
+the JAX CLI (`--eval_bucket`, `--eval_batch`). Matmuls and cuDNN run in
+strict float32 (TF32 off); `--precision` accepts only `float32`.
+`--filter`, `--render`, `--render_plain`, `--plot` and `--devices` belong
+to later slices of the port and raise.
+"""
+
+from __future__ import annotations
+
+import os.path as osp
+import sys
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+LATER_SLICE_FLAGS = ("filter", "render", "render_plain", "plot")
+
+
+def strict_f32() -> None:
+    """Full float32 for matmuls and cuDNN (its GRUs included): TF32 keeps
+    about three decimal digits, and the theta feedback compounds errors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def synthetic_j_regressor(num_verts: int) -> np.ndarray:
+    """The synthetic H36M J_regressor (17, V) of the JAX `evaluate.py`,
+    drawn from the same RandomState stream."""
+    rs = np.random.RandomState(7)
+    j_regressor = (rs.rand(17, num_verts) ** 8).astype(np.float32)
+    j_regressor /= j_regressor.sum(1, keepdims=True)
+    return j_regressor
+
+
+def build_models(cfg, synthetic: bool, device: torch.device | str):
+    """(smpl, gen, vibe, j_regressor (17, V) tensor) on `device`.
+
+    Synthetic runs draw TePose from `torch.Generator().manual_seed(0)` and
+    VIBE from seed 1; otherwise both load converted checkpoints.
+    """
+    from tepose_tpu_torch.config import BASE_DATA_DIR
+    from tepose_tpu_torch.models.smpl import (
+        load_smpl_assets, synthetic_smpl_model)
+    from tepose_tpu_torch.models.tepose import (
+        TePose, TePoseConfig, Vibe, VibeConfig)
+    from tepose_tpu_torch.weights import (
+        load_checkpoint, state_dict_from_jax_tree)
+
+    mcfg = TePoseConfig(seqlen=cfg.DATASET.SEQLEN,
+                        n_layers=cfg.MODEL.TGRU.NUM_LAYERS,
+                        hidden_size=cfg.MODEL.TGRU.HIDDEN_SIZE)
+    vcfg = VibeConfig(seqlen=16, n_layers=2, hidden_size=1024,
+                      add_linear=True)
+
+    smpl_npz = osp.join(BASE_DATA_DIR, "smpl_neutral.npz")
+    if osp.isfile(smpl_npz):
+        smpl = load_smpl_assets(smpl_npz, device)
+    elif synthetic:
+        smpl = synthetic_smpl_model(seed=0, device=device)
+    else:
+        raise FileNotFoundError(
+            f"{smpl_npz} not found — convert your licensed SMPL pkl with "
+            "tools/convert_smpl.py (or pass --synthetic for a smoke run)")
+
+    gen = TePose(mcfg, generator=torch.Generator().manual_seed(0),
+                 device=device)
+    vibe = Vibe(vcfg, generator=torch.Generator().manual_seed(1),
+                device=device)
+    if not synthetic:
+        if not osp.isfile(cfg.TRAIN.PRETRAINED):
+            raise FileNotFoundError(
+                f"{cfg.TRAIN.PRETRAINED} is not a pretrained model")
+        trees, scalars = load_checkpoint(cfg.TRAIN.PRETRAINED)
+        gen.load_state_dict(state_dict_from_jax_tree(trees["gen"]))
+        if "performance" in scalars:
+            print(f"Loaded checkpoint, performance "
+                  f"{scalars['performance']:.2f}")
+        vibe_npz = osp.join(BASE_DATA_DIR, "vibe_wo_3dpw.npz")
+        if not osp.isfile(vibe_npz):
+            raise FileNotFoundError(
+                f"{vibe_npz} not found — convert the released VIBE "
+                "checkpoint with tools/convert_checkpoint.py --kind vibe")
+        vibe.load_state_dict(
+            state_dict_from_jax_tree(load_checkpoint(vibe_npz)[0]["gen"]))
+    gen.eval()
+    vibe.eval()
+
+    jreg_path = osp.join(BASE_DATA_DIR, "J_regressor_h36m.npy")
+    if osp.isfile(jreg_path):
+        j_regressor = np.load(jreg_path).astype(np.float32)
+    elif synthetic:
+        j_regressor = synthetic_j_regressor(smpl.num_verts)
+    else:
+        raise FileNotFoundError(f"{jreg_path} missing")
+    return smpl, gen, vibe, torch.as_tensor(j_regressor, device=device)
+
+
+def synthetic_eval_data(num_videos=3, min_len=40, max_len=90, seed=0):
+    """Generated eval videos, equal to the JAX `evaluate.py`'s."""
+    rs = np.random.RandomState(seed)
+    data = {}
+    for i in range(num_videos):
+        n = int(rs.randint(min_len, max_len))
+        # valid_i: per-frame validity the mpii3d eval branch consumes; a
+        # hole in the middle exercises the mask
+        valid = np.ones((n, 1), np.int64)
+        valid[n // 2:n // 2 + 3] = 0
+        data[f"synthetic_vid_{i}"] = {
+            "features": rs.randn(n, 2048).astype(np.float32) * 0.1,
+            "joints3D": rs.randn(n, 49, 3).astype(np.float32) * 0.2,
+            "theta_pseu": np.concatenate(
+                [np.tile([1.0, 0, 0], (n, 1)),
+                 rs.randn(n, 82) * 0.1], axis=1).astype(np.float32),
+            "pose": (rs.randn(n, 72) * 0.2).astype(np.float32),
+            "shape": (rs.randn(n, 10) * 0.2).astype(np.float32),
+            "valid_i": valid,
+        }
+    return data
+
+
+def make_eval_batch(data: Dict[str, dict], chunk: List[str], seqlen: int,
+                    T_pad: int, B: int) -> Dict[str, np.ndarray]:
+    """Pad the videos `chunk` into one batch of B rows and T_pad frames:
+    feats (B, T_pad, 2048), theta_pseu (B, S-1, 85) and theta_gt
+    (B, T_pad, 85) with the GT camera forced to [1, 0, 0]."""
+    S = seqlen
+    feats = np.zeros((B, T_pad, 2048), np.float32)
+    pseu = np.zeros((B, S - 1, 85), np.float32)
+    theta_gt = np.zeros((B, T_pad, 85), np.float32)
+    for b, n in enumerate(chunk):
+        d = data[n]
+        L = len(d["features"])
+        feats[b, :L] = d["features"]
+        pseu[b] = d["theta_pseu"][:S - 1]
+        theta_gt[b, :L, :3] = [1.0, 0.0, 0.0]
+        theta_gt[b, :L, 3:75] = d["pose"][:L]
+        theta_gt[b, :L, 75:] = d["shape"][:L]
+    return {"feats": feats, "theta_pseu": pseu, "theta_gt": theta_gt}
+
+
+def run_eval(cfg, args, synthetic: bool = False, *,
+             device: torch.device | str) -> Dict[str, float]:
+    """Evaluate on `device`; returns the metric summary (mm) plus `frames`
+    (poses evaluated) and `seconds` (wall time of the eval loop)."""
+    from tepose_tpu_torch.data.db import (
+        eval_db_paths, key_eval_db_by_video, load_db, load_pseudotheta)
+    from tepose_tpu_torch.data.kp_utils import convert_kps
+    from tepose_tpu_torch.eval.evaluator import (
+        EvalAccumulator, eval_rollout, spin49_to_eval_format)
+
+    for flag in LATER_SLICE_FLAGS:
+        if getattr(args, flag, False):
+            raise SystemExit(f"--{flag} is not ported to tepose_tpu_torch "
+                             "yet; run the JAX evaluate.py for it")
+    strict_f32()
+    dataset = args.dataset
+    smpl, gen, vibe, j_regressor = build_models(cfg, synthetic, device)
+    S = gen.cfg.seqlen
+    jreg = j_regressor if dataset != "mpii3d" else None
+
+    if synthetic:
+        data = synthetic_eval_data()
+    else:
+        db_file, pse_file = eval_db_paths(dataset, cfg.TITLE, False)
+        print(f"Load data from {db_file}")
+        data = key_eval_db_by_video(load_db(db_file),
+                                    load_pseudotheta(pse_file),
+                                    target_action=args.seq,
+                                    is_mpii3d=(dataset == "mpii3d"))
+
+    # bucket videos by padded length (same defaults as the JAX CLI)
+    names = [n for n in data if len(data[n]["features"]) >= S]
+    lengths = {n: len(data[n]["features"]) for n in names}
+    long_videos = dataset != "3dpw"
+    bsz = getattr(args, "eval_bucket", None) or (256 if long_videos else 128)
+    buckets: Dict[int, List[str]] = {}
+    for n in names:
+        buckets.setdefault(-(-lengths[n] // bsz) * bsz, []).append(n)
+
+    acc = EvalAccumulator(dataset=dataset)
+    tot_frames = 0
+    t_start = time.time()
+    # partial chunks pad to the next power of two, as in the JAX CLI
+    MAX_B = getattr(args, "eval_batch", None) or (8 if long_videos else 32)
+    for T_pad, vids in sorted(buckets.items()):
+        W = T_pad - S + 1
+        for i in range(0, len(vids), MAX_B):
+            chunk = vids[i:i + MAX_B]
+            B = 1 << max(len(chunk) - 1, 0).bit_length()
+            batch = {k: torch.from_numpy(v).to(device) for k, v in
+                     make_eval_batch(data, chunk, S, T_pad, B).items()}
+            out = eval_rollout(gen, vibe, smpl, batch["feats"],
+                               batch["theta_pseu"], batch["theta_gt"], jreg,
+                               W)
+            pred_j3d = out["pred_j3d"].cpu().numpy()
+            mpvpe = out["mpvpe"].cpu().numpy()
+
+            for b, n in enumerate(chunk):
+                d = data[n]
+                L = lengths[n]
+                pj = pred_j3d[b, :L]
+                tgt = d["joints3D"][:L].astype(np.float32)
+                valid_map = None
+                if dataset == "mpii3d":
+                    pj = spin49_to_eval_format(pj, "mpii3d")
+                    tgt = convert_kps(tgt, "spin", "mpii3d_test")
+                    vm = d["valid_i"][:L, 0].nonzero()[0]
+                    if vm.size == 0:
+                        print(f"No valid frames in {n}. Continue")
+                        continue
+                    valid_map = vm[vm < L]
+                elif tgt.shape[1] == 49:
+                    tgt = convert_kps(tgt, "spin", "common")
+                acc.add_video(
+                    pj, tgt,
+                    mpvpe=mpvpe[b, :L] if dataset == "3dpw" else None,
+                    valid_map=valid_map)
+                tot_frames += L
+
+    res = acc.summarize()
+    dt = time.time() - t_start
+    print(f"\nEvaluated total {tot_frames} poses in {dt:.1f}s "
+          f"({tot_frames / max(dt, 1e-9):.1f} FPS) on {device}")
+    print({k: round(v, 4) for k, v in res.items()})
+    res["frames"] = tot_frames
+    res["seconds"] = dt
+    return res
+
+
+def main():
+    from tepose_tpu_torch.config import parse_args
+
+    synthetic = "--synthetic" in sys.argv
+    if synthetic:
+        sys.argv.remove("--synthetic")
+    if "--devices" in sys.argv:
+        raise SystemExit("--devices is not ported to tepose_tpu_torch yet; "
+                         "the port evaluates on one device")
+    if "--precision" in sys.argv:
+        i = sys.argv.index("--precision")
+        precision = sys.argv[i + 1] if i + 1 < len(sys.argv) else None
+        if precision != "float32":
+            raise SystemExit(
+                f"--precision {precision!r}: the port evaluates in float32 "
+                "only; a faster tier needs its own drift measurement")
+        del sys.argv[i:i + 2]
+    cfg, _, args = parse_args()
+    device = "cpu" if args.gpu == "cpu" else f"cuda:{int(args.gpu)}"
+    return run_eval(cfg, args, synthetic=synthetic, device=device)
+
+
+if __name__ == "__main__":
+    main()
