@@ -17,10 +17,29 @@ Phases, each of which raises on failure (no phase's error is caught):
      finite metrics and at least one launch of every kernel;
   4. the full-width JAX golden (tests/golden/torch_port_eval_f32.npz, from
      tools/make_torch_port_golden.py): per-frame joints and MPVPE within
-     1e-4 m, theta within 1e-3.
+     1e-4 m, theta within 1e-3;
+  5. the serving engine at full width (ResNet-50 on seeded uint8 224 x 224
+     crops, TePose and VIBE 2 x 1024, V = 6890):
+     `StreamingEngine.run_tracklets_from_crops` on two tracklets of 7 and
+     12 frames (one bucket, B_pad 2, T_pad 16), with the launch counts
+     zeroed just before and read just after, held to the JAX serving golden
+     (tests/golden/torch_port_serve_f32.npz, from
+     tools/make_torch_serve_golden.py): theta within 1e-3, kp_3d and
+     verts within 1e-4 m, kp_2d within 1e-4 of its magnitude; then the
+     same through `extract_features_multi` + `run_tracklets`;
+  6. `LiveSession` (2 streams, the backbone on board) pushed the same crops
+     frame by frame, one slot reset once, against phase 5's engine outputs
+     at rtol 2e-4, atol 2e-5 (tests/test_live.py's bar), counts zeroed
+     just before the pushes;
+  7. serving timings: engine frames/s (8 tracklets x 128 uint8 frames,
+     `parity` and `serving` presets), ResNet-50 crops/s (crop_batch 16
+     and 128, float32 and bfloat16), `fast_stream_scan` ms/window against
+     the plain-encoder window loop (B = 32, T = 128) and `LiveSession.push`
+     p50/p99 latency (1 and 32 streams, the first push excluded).
 
 Before the last line it prints one JSON line with the kernels' routes,
-launches, errors and times; the last line is the ok/device JSON object.
+launches per path, errors and times; the last line is the ok/device JSON
+object.
 """
 
 from __future__ import annotations
@@ -39,6 +58,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_ATOL = 1e-5       # fp32, as tests/test_lbs_pallas.py holds the kernel
 GOLDEN_J3D_ATOL = 1e-4   # 0.1 mm, the reproduction bar (BASELINE.md:64)
 GOLDEN_THETA_ATOL = 1e-3
+LIVE_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_live.py's bar
+
+# phase 7's shapes
+ENGINE_TRACKS, ENGINE_FRAMES = 8, 128
+BACKBONE_CROPS = 512
+SCAN_B, SCAN_T = 32, 128
+LIVE_STREAMS, LIVE_PUSHES = (1, 32), 100
 
 
 def cuda_ms(fn, launches: int = 20, reps: int = 15) -> float:
@@ -192,6 +218,203 @@ def phase4_golden() -> None:
           f"{dev['mpvpe']:.3e} m, pred_theta {dev['pred_theta']:.3e}")
 
 
+def serve_golden():
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import make_torch_serve_golden
+
+    return make_torch_serve_golden
+
+
+def phase5_engine() -> dict:
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+
+    sg = serve_golden()
+    golden = sg.load_golden()
+    spec = golden["spec"]
+    setup = sg.port_setup(spec, "cuda")
+    sums = sg.weight_checksums(setup)
+    if not np.allclose(sums, golden["weight_checksums"], rtol=1e-9, atol=0):
+        raise RuntimeError(
+            f"weights rebuilt from the serving golden's seeds differ from the "
+            f"golden's ({sums} vs {golden['weight_checksums']})")
+    engine = sg.port_engine(setup)
+    runs = {
+        "run_tracklets_from_crops":
+            lambda: engine.run_tracklets_from_crops(setup["crops"]),
+        "extract_features_multi + run_tracklets":
+            lambda: engine.run_tracklets(
+                engine.extract_features_multi(setup["crops"])),
+    }
+    out = {"setup": setup}
+    for name, run in runs.items():
+        lbs.LAUNCHES = 0
+        results = run()
+        torch.cuda.synchronize()
+        launches = lbs.LAUNCHES
+        if launches <= 0:
+            raise RuntimeError(f"engine {name} never launched the lbs kernel")
+        dev = sg.golden_deviation(sg.golden_outputs(results, spec), golden)
+        print(f"phase 5: engine {name} on cuda ({len(spec['lengths'])} "
+              f"tracklets of {spec['lengths']} uint8 {spec['crop_size']}^2 "
+              f"crops, 2x1024 GRUs, V={spec['num_verts']}), lbs launches "
+              f"{launches}; deviation from the JAX serving golden / bar: "
+              + ", ".join(f"{k} {d:.3e} / {bar:.1e}"
+                          for k, (d, bar) in dev.items()))
+        bad = {k: v for k, v in dev.items() if not v[0] <= v[1]}
+        if bad:
+            raise RuntimeError(f"engine {name} misses the serving golden: "
+                               f"{bad}")
+        if "results" not in out:
+            out.update(results=results, launches=launches)
+    return out
+
+
+def phase6_live(p5: dict) -> dict:
+    """Slot 1 streams tracklet 1; slot 0 streams tracklet 0, is reset after
+    its last frame and streams tracklet 0 again from frame 0."""
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from tepose_tpu_torch.streaming.live import LiveSession
+
+    setup, offline = p5["setup"], p5["results"]
+    c0, c1 = setup["crops"]
+    S = setup["spec"]["seqlen"]
+    keys = ("theta", "verts", "kp_2d", "kp_3d")
+    live = LiveSession(setup["smpl"], setup["gen"], setup["vibe"],
+                       n_streams=2, backbone=setup["backbone"], outputs=keys)
+    worst = {k: (0.0, 0.0) for k in keys}   # (max abs dev, max dev / bar)
+    lbs.LAUNCHES = 0
+    for t in range(len(c1)):
+        f0 = t % len(c0)
+        out = live.push(np.stack([c0[f0], c1[t]]),
+                        reset=np.array([t == len(c0), False]))
+        for slot, (res, f) in enumerate(((offline[0], f0), (offline[1], t))):
+            if bool(out["valid"][slot]) != (f >= S - 1):
+                raise RuntimeError(f"live slot {slot} frame {f}: valid "
+                                   f"{out['valid'][slot]}")
+            for k in keys:
+                got, want = out[k][slot].astype(np.float64), res[k][f]
+                if not np.isfinite(got).all():
+                    raise RuntimeError(f"live {k} not finite at t={t}")
+                d = np.abs(got - want)
+                bar = LIVE_TOL["atol"] + LIVE_TOL["rtol"] * np.abs(want)
+                ratio = d / bar
+                worst[k] = (max(worst[k][0], float(d.max())),
+                            max(worst[k][1], float(ratio.max())))
+    torch.cuda.synchronize()
+    launches = lbs.LAUNCHES
+    print(f"phase 6: LiveSession 2 streams on cuda, {len(c1)} pushes of "
+          f"uint8 crops, slot 0 reset at t={len(c0)}; lbs launches "
+          f"{launches}; against the engine (rtol {LIVE_TOL['rtol']}, atol "
+          f"{LIVE_TOL['atol']}), max abs deviation / largest share of the "
+          f"bar: " + ", ".join(f"{k} {d:.3e} / {r:.3f}"
+                               for k, (d, r) in worst.items()))
+    if launches <= 0:
+        raise RuntimeError("LiveSession never launched the lbs kernel")
+    bad = {k: v for k, v in worst.items() if not v[1] <= 1.0}
+    if bad:
+        raise RuntimeError(f"live disagrees with the engine: {bad}")
+    return {"launches": launches}
+
+
+def host_seconds(fn, reps: int = 3) -> list:
+    """Host-clock seconds of `reps` calls of `fn`, each ending in a
+    device synchronise, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def phase7_timings(p5: dict, card: str) -> dict:
+    from tepose_tpu_torch.streaming.engine import device_scope, upload
+    from tepose_tpu_torch.streaming.fast_scan import (
+        fast_stream_scan, plain_stream_scan)
+    from tepose_tpu_torch.streaming.live import LiveSession
+
+    sg = serve_golden()
+    setup = p5["setup"]
+    size = setup["spec"]["crop_size"]
+    rs = np.random.RandomState(7)
+    res: dict = {"card": card}
+
+    crops = [rs.randint(0, 256, (ENGINE_FRAMES, 3, size, size)).astype(
+        np.uint8) for _ in range(ENGINE_TRACKS)]
+    for preset in ("parity", "serving"):
+        engine = sg.port_engine(setup, preset=preset)
+        secs = host_seconds(lambda: engine.run_tracklets_from_crops(crops))
+        fps = ENGINE_TRACKS * ENGINE_FRAMES / float(np.median(secs))
+        res[f"engine_fps_{preset}"] = fps
+        print(f"phase 7: engine run_tracklets_from_crops {ENGINE_TRACKS} x "
+              f"{ENGINE_FRAMES} uint8 frames, preset {preset}: {fps:.1f} "
+              f"frames/s (median of {[round(s, 4) for s in secs]} s) [{card}]")
+
+    dev = setup["smpl"].v_template.device
+    dev_crops = upload(rs.randint(0, 256, (BACKBONE_CROPS, 3, size, size))
+                       .astype(np.uint8), dev)
+    for dtype in (None, torch.bfloat16):
+        for cb in (16, 128):
+            engine = sg.port_engine(setup, backbone_dtype=dtype, crop_batch=cb)
+
+            def run():
+                with device_scope():
+                    engine._features(dev_crops)
+
+            secs = host_seconds(run)
+            rate = BACKBONE_CROPS / float(np.median(secs))
+            name = "bf16" if dtype is not None else "f32"
+            res[f"resnet50_crops_per_s_{name}_cb{cb}"] = rate
+            print(f"phase 7: ResNet-50 {name} crop_batch {cb}, "
+                  f"{BACKBONE_CROPS} device-resident uint8 crops: {rate:.1f} "
+                  f"crops/s (median of {[round(s, 4) for s in secs]} s) "
+                  f"[{card}]")
+
+    feats = torch.from_numpy(
+        rs.randn(SCAN_B, SCAN_T, 2048).astype(np.float32) * 0.5).to(dev)
+    buf0 = torch.zeros(SCAN_B, 5, 85, device=dev)
+    buf0[..., 0] = 1.0
+    W = SCAN_T - setup["spec"]["seqlen"] + 1
+    fns = {"plain": plain_stream_scan, "fast": fast_stream_scan}
+    secs = {"plain": [], "fast": []}
+    outs = {}
+    for name in ("plain", "fast", "fast", "plain", "plain", "fast"):
+        def run():
+            with device_scope():
+                outs[name] = fns[name](setup["gen"], setup["smpl"], feats,
+                                       buf0, W)
+        secs[name] += host_seconds(run, reps=2)
+    ms = {k: 1e3 * float(np.median(v)) / W for k, v in secs.items()}
+    agree = float((outs["fast"]["theta"] - outs["plain"]["theta"]).abs().max())
+    res.update(scan_ms_per_window_fast=ms["fast"],
+               scan_ms_per_window_plain=ms["plain"])
+    print(f"phase 7: theta-feedback scan B={SCAN_B} T={SCAN_T} ({W} windows, "
+          f"2x1024): fast_stream_scan {ms['fast']:.3f} ms/window, plain "
+          f"encoder loop {ms['plain']:.3f} ms/window (medians of 6 runs "
+          f"each, in turns plain/fast/fast/plain/plain/fast); theta max "
+          f"|fast - plain| {agree:.2e} [{card}]")
+
+    for n in LIVE_STREAMS:
+        live = LiveSession(setup["smpl"], setup["gen"], setup["vibe"],
+                           n_streams=n, backbone=setup["backbone"])
+        pool = rs.randint(0, 256, (8, n, 3, size, size)).astype(np.uint8)
+        lat = []
+        for i in range(LIVE_PUSHES + 1):
+            t0 = time.perf_counter()
+            live.push(pool[i % len(pool)])
+            lat.append(time.perf_counter() - t0)
+        p50, p99 = (1e3 * float(np.percentile(lat[1:], q)) for q in (50, 99))
+        res[f"live_push_ms_p50_{n}"], res[f"live_push_ms_p99_{n}"] = p50, p99
+        print(f"phase 7: LiveSession.push {n} stream(s), uint8 crops + "
+              f"float32 backbone, {LIVE_PUSHES} pushes after the first: p50 "
+              f"{p50:.3f} ms, p99 {p99:.3f} ms [{card}]")
+    print(json.dumps({"serving_timings": res}))
+    return res
+
+
 def main() -> None:
     card = phase0_device()
     sys.path.insert(0, REPO)
@@ -199,12 +422,18 @@ def main() -> None:
     kern = phase2_kernel()
     sl = phase3_slice()
     phase4_golden()
+    p5 = phase5_engine()
+    p6 = phase6_live(p5)
+    phase7_timings(p5, card)
     ms, plain_ms = kern["times"][256]
+    by_path = {"eval": sl["launches"], "engine": p5["launches"],
+               "live": p6["launches"]}
     print(json.dumps({"kernels": [{
         "name": "lbs_skinning", "route": "cuda",
         "source": "tepose_tpu_torch/csrc/lbs_skinning.cu",
         "replaces": "tepose_tpu/ops/lbs_pallas.py:76",
-        "launches": sl["launches"], "max_abs_err": kern["max_abs_err"],
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": kern["max_abs_err"],
         "ms": ms, "plain_ms": plain_ms, "shape": "B=256 V=6890 J=24",
         "card": card}]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,12 @@ tests. This package imports `torch` and never `jax` (not even through
 helpers it needs are copies pinned equal to their originals by tests.
 
 Ported so far: the theta-feedback eval rollout behind
-`python -m tepose_tpu_torch.evaluate`, with the LBS skinning step as a CUDA
-kernel written for sm_90a (`csrc/lbs_skinning.cu`, built by `kernels.py`).
+`python -m tepose_tpu_torch.evaluate`, and the serving path on the device:
+the ResNet-50 backbone, the lane-batched fast encoder and window scan, the
+offline `streaming.engine.StreamingEngine` and the frame-at-a-time
+`streaming.live.LiveSession`. Every SMPL forward skins through the LBS
+kernel, CUDA C++ written for sm_90a (`csrc/lbs_skinning.cu`, built by
+`kernels.py`).
 """
 
 __version__ = "0.1.0"

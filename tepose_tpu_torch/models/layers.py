@@ -43,6 +43,24 @@ def make_linear(in_dim: int, out_dim: int, *, generator: torch.Generator,
     return lin
 
 
+def gru_update(x_proj: torch.Tensor, h_proj: torch.Tensor,
+               h: torch.Tensor) -> torch.Tensor:
+    """One GRU step from both projections, torch's gate math (order r, z,
+    n), as `tepose_tpu/models/layers.py::_gru_cell`:
+
+      r = sigmoid(x_r + h_r); z = sigmoid(x_z + h_z)
+      n = tanh(x_n + r * h_n); h' = (1 - z) * n + z * h
+
+    x_proj = W_ih x + b_ih and h_proj = W_hh h + b_hh, both (..., 3H).
+    """
+    xr, xz, xn = x_proj.chunk(3, dim=-1)
+    hr, hz, hn = h_proj.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h
+
+
 @torch.no_grad()
 def make_gru(input_size: int, hidden_size: int, num_layers: int, *,
              bidirectional: bool, generator: torch.Generator,

@@ -65,13 +65,13 @@ class Regressor(nn.Module):
         self.register_buffer("init_shape", row([0.0] * 10))
         self.register_buffer("init_cam", row([0.9, 0.0, 0.0]))
 
-    def ief_iterations(self, x: torch.Tensor):
+    def ief_iterations(self, x: torch.Tensor, n_iter: int = N_ITER):
         """Returns (pose6d (B, 144), shape (B, 10), cam (B, 3))."""
         B = x.shape[0]
         pred_pose = self.init_pose.expand(B, NPOSE)
         pred_shape = self.init_shape.expand(B, 10)
         pred_cam = self.init_cam.expand(B, 3)
-        for _ in range(N_ITER):
+        for _ in range(n_iter):
             xc = torch.cat([x, pred_pose, pred_shape, pred_cam], dim=1)
             xc = self.fc2(self.fc1(xc))
             pred_pose = self.decpose(xc) + pred_pose
@@ -80,13 +80,14 @@ class Regressor(nn.Module):
         return pred_pose, pred_shape, pred_cam
 
     def forward(self, x: torch.Tensor, smpl: SmplModel, *,
-                j_regressor: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                j_regressor: Optional[torch.Tensor] = None,
+                n_iter: int = N_ITER) -> Dict[str, torch.Tensor]:
         """x (B, 2048) -> theta (B, 85) = [cam, pose aa, shape], verts
         (B, V, 3), kp_2d (B, K, 2), kp_3d (B, K, 3) and rotmat
-        (B, 24, 3, 3); K = 49, or 14 through `j_regressor` (H36M J14)."""
+        (B, 24, 3, 3); K = 49, or 14 through `j_regressor` (H36M J14).
+        `n_iter` IEF steps (3 everywhere but `backbone.hmr_forward`)."""
         B = x.shape[0]
-        pred_pose, pred_shape, pred_cam = self.ief_iterations(x)
+        pred_pose, pred_shape, pred_cam = self.ief_iterations(x, n_iter)
         pred_rotmat = rot6d_to_rotmat(pred_pose.reshape(-1, 6)).reshape(
             B, 24, 3, 3)
 

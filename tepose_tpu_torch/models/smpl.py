@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tepose_tpu_torch.ops.geometry import batch_rodrigues
@@ -221,9 +222,10 @@ def _rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor,
     rel_joints = joints - torch.cat(
         [torch.zeros_like(joints[:, :1]), joints[:, parent_idx]], dim=1)
     top = torch.cat([rot_mats, rel_joints[..., None]], dim=-1)   # (B,J,3,4)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype,
-                          device=rot_mats.device).expand(B, J, 1, 4)
-    local = torch.cat([top, bottom], dim=-2)                     # (B,J,4,4)
+    # bottom row [0, 0, 0, 1] made on the device: a tensor built from host
+    # data would be a blocking upload, which waits for the device's queue
+    local = F.pad(top, (0, 0, 0, 1))                             # (B,J,4,4)
+    local[..., 3, 3] = 1.0
 
     results = [local[:, 0]]
     for i in range(1, J):

@@ -33,13 +33,16 @@ class TemporalEncoder(nn.Module):
         self.linear_fwd = make_linear(hidden_size, 2048, **kw)
         self.linear_rec = make_linear(hidden_size * 2, 2048, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, T, F) -> (B, 2048)."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x (B, T, F) -> eval (B, 2048), or train (B, 2, 2048) with the
+        two branches stacked [fwd, rec], as `temporal_encoder_apply`."""
         xt = x.transpose(0, 1)                                  # (T, B, F)
         y_fwd_seq, _ = self.gru_fwd(xt)
         y_fwd = self.linear_fwd(torch.relu(y_fwd_seq[-1]))
         y_rec_seq, _ = self.gru_rec(torch.flip(xt, dims=(0,)))
         y_rec = self.linear_rec(torch.relu(y_rec_seq[0]))
+        if train:
+            return torch.stack([y_fwd, y_rec], dim=1)
         return (y_fwd + y_rec) / 2.0
 
 

@@ -4,7 +4,8 @@ Port of `tepose_tpu/models/tepose.py` (`TePoseConfig`, `tepose_apply`,
 `VibeConfig`, `vibe_apply`). The modules' `state_dict` keys are the JAX
 param-tree paths joined with "." (`encoder.gru_fwd.weight_ih_l0`,
 `regressor.init_pose`, ...), so `weights.state_dict_from_jax_tree` output
-loads with `strict=True`. The lane-batched `fast_encoder` is not ported yet.
+loads with `strict=True`. `TePoseConfig.fast_encoder` routes the forward
+through the lane-batched `models.fast_encoder`, which computes the same.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from tepose_tpu_torch.models.fast_encoder import (
+    FEAT_DIM, fast_encoder_window, pack_fast_encoder, project_frame_features)
 from tepose_tpu_torch.models.regressor import Regressor
 from tepose_tpu_torch.models.smpl import SmplModel
 from tepose_tpu_torch.models.temporal import TemporalEncoder, VibeEncoder
@@ -22,11 +25,15 @@ from tepose_tpu_torch.models.temporal import TemporalEncoder, VibeEncoder
 
 @dataclasses.dataclass(frozen=True)
 class TePoseConfig:
-    """Static hyperparameters (configs/*.yaml MODEL.TGRU, DATASET.SEQLEN)."""
+    """Static hyperparameters (configs/*.yaml MODEL.TGRU, DATASET.SEQLEN).
+
+    `fast_encoder` routes `TePose.forward` through `models.fast_encoder`
+    (lane-batched GRUs, the same function)."""
 
     seqlen: int = 6
     n_layers: int = 2
     hidden_size: int = 1024
+    fast_encoder: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,13 +60,29 @@ class TePose(nn.Module):
         self.encoder = TemporalEncoder(cfg.n_layers, cfg.hidden_size,
                                        generator=generator, device=device)
         self.regressor = Regressor(generator=generator, device=device)
+        self._fast: Optional[Dict] = None
+
+    def fast_pack(self) -> Dict:
+        """The encoder's lane-stacked weights (`pack_fast_encoder`), packed
+        at the first call. The pack is a copy: a later `load_state_dict` or
+        `.to()` does not reach it."""
+        if self._fast is None:
+            self._fast = pack_fast_encoder(self.encoder)
+        return self._fast
 
     def forward(self, x: torch.Tensor, smpl: SmplModel, *,
                 j_regressor: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """x (B, T, 2133) -> theta (B, 85), verts (B, V, 3), kp_2d, kp_3d,
         rotmat."""
-        return self.regressor(self.encoder(x), smpl, j_regressor=j_regressor)
+        if self.cfg.fast_encoder:
+            fast = self.fast_pack()
+            feature = fast_encoder_window(
+                fast, project_frame_features(fast, x[..., :FEAT_DIM]),
+                x[..., FEAT_DIM:])
+        else:
+            feature = self.encoder(x)
+        return self.regressor(feature, smpl, j_regressor=j_regressor)
 
 
 class Vibe(nn.Module):

@@ -72,8 +72,9 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
 
 
 def state_dict_from_jax_tree(tree: Any) -> Dict[str, torch.Tensor]:
-    """A JAX generator or VIBE param tree (numpy leaves) -> a float32
-    state_dict for `TePose` / `Vibe`."""
+    """A JAX generator, VIBE or backbone param tree (numpy leaves) -> a
+    float32 state_dict for `TePose` / `Vibe` / `ResNet50`; the backbone's
+    list-valued `layer1..4` become `layer1.0.conv1.w`, ..."""
     return {k.replace(SEP, "."): torch.from_numpy(np.array(v, np.float32))
             for k, v in flatten_tree(tree).items()}
 

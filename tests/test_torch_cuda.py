@@ -1,5 +1,6 @@
 """CUDA-only tests of the port: the LBS skinning kernel against its plain
-version, its input checks, and the eval rollout on the card against the CPU.
+version, its input checks, and the eval rollout, the serving engine and
+the live session on the card against the CPU.
 
 They skip where no CUDA device is visible. This file imports no JAX, so on a
 GPU host without JAX it runs without the suite's conftest:
@@ -85,3 +86,92 @@ def test_rollout_on_cuda_matches_cpu(cuda):
     for key, atol in (("pred_j3d", 1e-4), ("mpvpe", 1e-4),
                       ("pred_theta", 1e-3)):
         np.testing.assert_allclose(out[key], ref[key], atol=atol, rtol=0)
+
+
+SERVE_SPEC = dict(seqlen=6, n_layers=2, hidden_size=32, vibe_n_layers=2,
+                  vibe_hidden_size=32, num_verts=700, smpl_seed=0, gen_seed=0,
+                  vibe_seed=1, backbone_seed=2, crop_seed=3, crop_size=64,
+                  lengths=[7, 12], window_bucket=16, vert_stride=7)
+
+
+def test_engine_on_cuda_matches_cpu(cuda):
+    """The small-width serving engine on the card, through the kernel,
+    against the same engine on the CPU, at chip_smoke.py's golden bars."""
+    import make_torch_serve_golden as sg
+
+    cpu = sg.port_serve(sg.port_setup(SERVE_SPEC, "cpu"))
+    setup = sg.port_setup(SERVE_SPEC, cuda)
+    for path in ("crops", "features"):
+        before = LS.LAUNCHES
+        got = sg.port_serve(setup, path)
+        assert LS.LAUNCHES > before
+        golden = dict(cpu, spec=SERVE_SPEC)
+        for k, (d, bar) in sg.golden_deviation(got, golden).items():
+            assert d <= bar, (path, k, d, bar)
+
+
+def test_live_on_cuda_matches_engine(cuda):
+    """LiveSession with the backbone on the card, one slot reset, against
+    the engine on the card at tests/test_live.py's bar."""
+    import make_torch_serve_golden as sg
+    from tepose_tpu_torch.streaming.live import LiveSession
+
+    setup = sg.port_setup(SERVE_SPEC, cuda)
+    offline = sg.port_engine(setup).run_tracklets_from_crops(setup["crops"])
+    c0, c1 = setup["crops"]
+    keys = ("theta", "verts", "kp_2d", "kp_3d")
+    live = LiveSession(setup["smpl"], setup["gen"], setup["vibe"],
+                       n_streams=2, backbone=setup["backbone"], outputs=keys)
+    before = LS.LAUNCHES
+    for t in range(len(c1)):
+        f0 = t % len(c0)
+        out = live.push(np.stack([c0[f0], c1[t]]),
+                        reset=np.array([t == len(c0), False]))
+        for slot, (res, f) in enumerate(((offline[0], f0), (offline[1], t))):
+            assert bool(out["valid"][slot]) == (f >= 5)
+            for k in keys:
+                np.testing.assert_allclose(
+                    out[k][slot], res[k][f], rtol=2e-4, atol=2e-5,
+                    err_msg=f"{t} {slot} {k}")
+    assert LS.LAUNCHES > before
+
+
+def test_live_on_cuda_matches_cpu(cuda):
+    """The same pushes, one slot reset, through a LiveSession on the card
+    and one on the CPU, at chip_smoke.py's golden bars (kp_2d relative to
+    its magnitude)."""
+    import make_torch_serve_golden as sg
+    from tepose_tpu_torch.streaming.live import LiveSession
+
+    keys = ("theta", "verts", "kp_2d", "kp_3d")
+    sessions = []
+    for device in (cuda, "cpu"):
+        s = sg.port_setup(SERVE_SPEC, device)
+        sessions.append(LiveSession(s["smpl"], s["gen"], s["vibe"],
+                                    n_streams=2, backbone=s["backbone"],
+                                    outputs=keys))
+    c0, c1 = s["crops"]
+    before = LS.LAUNCHES
+    for t in range(len(c1)):
+        x = np.stack([c0[t % len(c0)], c1[t]])
+        reset = np.array([t == len(c0), False])
+        got, want = (live.push(x, reset=reset) for live in sessions)
+        np.testing.assert_array_equal(got["valid"], want["valid"])
+        for k in keys:
+            atol = {"theta": sg.THETA_ATOL,
+                    "kp_2d": sg.KP2D_RTOL * np.abs(want[k]).max()}.get(
+                        k, sg.METRE_ATOL)
+            np.testing.assert_allclose(got[k], want[k], atol=atol, rtol=0,
+                                       err_msg=f"{t} {k}")
+    assert LS.LAUNCHES > before
+
+
+def test_serving_modules_stay_on_cuda(cuda):
+    """The engine refuses modules on two devices; nothing moves to the CPU
+    or falls back to the einsum."""
+    import make_torch_serve_golden as sg
+
+    setup = sg.port_setup(SERVE_SPEC, cuda)
+    setup["backbone"] = setup["backbone"].cpu()
+    with pytest.raises(ValueError, match="serving path runs on"):
+        sg.port_engine(setup)
