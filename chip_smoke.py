@@ -8,9 +8,16 @@ Phases, each of which raises on failure (no phase's error is caught):
      the card's name and power limit as nvidia-smi reports them;
   1. build every CUDA kernel of the port from csrc/ with nvcc;
   2. LBS skinning kernel against its plain PyTorch version on the card, at
-     V = 6890 with B in {1, 8, 256} and at a ragged V = 700: max abs error
-     <= 1e-5, a non-contiguous input must raise, and median CUDA-event times
-     of both after warm-up;
+     V = 6890 with B in {1, 8, 32, 192, 256} (the main path's launch sizes
+     and a large batch), at ragged V in {700, 301} with B = 3, and on inputs
+     that are views at storage offset 1 of larger buffers (contiguous, only
+     4-byte aligned): max abs error <= 1e-5; a non-contiguous input must
+     raise. Then, at V = 6890 for each B, the device time per launch of the
+     kernel and of the plain version (`device_ms`: a sleep kernel queued
+     ahead of the start event, so the device reaches the launches only once
+     the host has queued them all; CUDA-event mean per launch, median over
+     repeats, in turns plain/kernel/kernel/plain), its bound from the shapes,
+     its share of the bound, and the wrapper's host microseconds per call;
   3. the eval rollout through its entry point,
      `tepose_tpu_torch.evaluate.run_eval(--synthetic, 3dpw, full width)`,
      with the kernels' launch counts zeroed just before and read just after:
@@ -56,6 +63,12 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 KERNEL_ATOL = 1e-5       # fp32, as tests/test_lbs_pallas.py holds the kernel
+# phase 2's shapes: the main path's launch sizes at V = 6890 (eval 32 and
+# 192, engine 8, live 1) and the large batch; ragged vertex counts
+LBS_V, LBS_BATCHES = 6890, (1, 8, 32, 192, 256)
+LBS_RAGGED = ((700, 3), (301, 3))
+# the card's peaks for a bound: fp32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 GOLDEN_J3D_ATOL = 1e-4   # 0.1 mm, the reproduction bar (BASELINE.md:64)
 GOLDEN_THETA_ATOL = 1e-3
 LIVE_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_live.py's bar
@@ -65,25 +78,6 @@ ENGINE_TRACKS, ENGINE_FRAMES = 8, 128
 BACKBONE_CROPS = 512
 SCAN_B, SCAN_T = 32, 128
 LIVE_STREAMS, LIVE_PUSHES = (1, 32), 100
-
-
-def cuda_ms(fn, launches: int = 20, reps: int = 15) -> float:
-    """Median over `reps` of CUDA-event time per call across `launches`
-    back-to-back calls, after warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return float(np.median(times))
 
 
 def phase0_device() -> str:
@@ -113,53 +107,153 @@ def phase1_build() -> float:
     return seconds
 
 
-def phase2_kernel() -> dict:
+def device_ms(fn, launches: int = 50, reps: int = 15) -> list:
+    """Device milliseconds per call of `fn`, one value per repeat.
+
+    Each repeat queues a sleep kernel, then the start event, `launches`
+    calls and the end event. The sleep outlasts the host's enqueueing, so
+    the device runs the calls back to back and the events time the device,
+    not how fast the host issues launches. Where the device reached the
+    start event before the host had queued the last call, the repeat is
+    run again with twice the sleep; it fails after a few doublings."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(enqueue_s, 1e-3) * 8e9)   # ~4x the enqueue at 2 GHz
+    times = []
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        end.synchronize()
+        if not queued_in_time:
+            cycles *= 2
+            if cycles > 2e10:
+                raise RuntimeError("device_ms: the device keeps reaching "
+                                   "the start event before the launches "
+                                   "are queued")
+            continue
+        times.append(start.elapsed_time(end) / launches)
+    return times
+
+
+def host_us_per_call(fn, launches: int = 200) -> float:
+    """Host-clock microseconds per call of `fn`: its enqueue cost."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / launches
+    torch.cuda.synchronize()
+    return us
+
+
+def lbs_bound(B: int, V: int, J: int) -> tuple[float, str]:
+    """Least time in ms the card could take to skin B x V vertices, and
+    what sets it: 24 J + 18 flops per sample and vertex (the blend's 12 J
+    FMAs, the apply's 9 FMAs and 3 adds) at the fp32 peak, against v_posed,
+    the output, W^T and the transforms moved once at the memory rate."""
+    flops = (24 * J + 18) * B * V
+    nbytes = 4 * (2 * B * V * 3 + J * V + B * J * 16)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def lbs_inputs(rs, B: int, V: int, dev, offset: int = 0):
+    """wT (J, V), A (B, J, 4, 4), v (B, V, 3) on `dev`; with `offset`, each
+    is a contiguous view at that storage offset of a larger buffer."""
     from tepose_tpu_torch.models.smpl import synthetic_smpl_model
+
+    wT = synthetic_smpl_model(0, V, device=dev).lbs_weights_t
+    J = wT.shape[0]
+    A = rs.randn(B, J, 4, 4).astype(np.float32)
+    A[:, :, 3] = [0, 0, 0, 1]
+    v = rs.randn(B, V, 3).astype(np.float32)
+    out = []
+    for t in (wT, torch.from_numpy(A).to(dev), torch.from_numpy(v).to(dev)):
+        if offset:
+            buf = torch.empty(t.numel() + offset, device=dev)
+            buf[offset:] = t.reshape(-1)
+            t = buf[offset:].view(t.shape)
+        out.append(t)
+    return out
+
+
+def phase2_kernel(card: str) -> dict:
     from tepose_tpu_torch.ops.lbs_skinning import (
         lbs_skinning, lbs_skinning_reference)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
-    results = {"max_abs_err": 0.0, "times": {}}
-    for V, batches in ((6890, (1, 8, 256)), (700, (3,))):
-        wT = synthetic_smpl_model(0, V, device=dev).lbs_weights_t
-        J = wT.shape[0]
-        for B in batches:
-            A = rs.randn(B, J, 4, 4).astype(np.float32)
-            A[:, :, 3] = [0, 0, 0, 1]
-            A = torch.from_numpy(A).to(dev)
-            v = torch.from_numpy(rs.randn(B, V, 3).astype(np.float32)).to(dev)
-            out = lbs_skinning(wT, A, v)
-            ref = lbs_skinning_reference(wT, A, v)
-            torch.cuda.synchronize()
-            if out.shape != (B, V, 3) or not torch.isfinite(out).all():
-                raise RuntimeError(f"lbs kernel output bad at B={B} V={V}")
-            err = (out - ref).abs().max().item()
-            print(f"phase 2: lbs B={B} V={V} max_abs_err={err:.3e}")
-            if not err <= KERNEL_ATOL:
-                raise RuntimeError(f"lbs kernel disagrees with the plain "
-                                   f"version at B={B} V={V}: {err} > "
-                                   f"{KERNEL_ATOL}")
-            results["max_abs_err"] = max(results["max_abs_err"], err)
-            if V == 6890:
-                plain_ms = cuda_ms(lambda: lbs_skinning_reference(wT, A, v))
-                ms = cuda_ms(lambda: lbs_skinning(wT, A, v))
-                plain_ms2 = cuda_ms(lambda: lbs_skinning_reference(wT, A, v))
-                ms2 = cuda_ms(lambda: lbs_skinning(wT, A, v))
-                results["times"][B] = (min(ms, ms2), min(plain_ms, plain_ms2))
-                print(f"phase 2: lbs B={B} V={V} kernel {ms:.4f}/{ms2:.4f} "
-                      f"ms, plain einsum {plain_ms:.4f}/{plain_ms2:.4f} ms "
-                      f"(median of CUDA-event means, two turns each)")
-    non_contig = torch.empty(2, 3, 6890, device=dev).transpose(1, 2)
-    A = torch.eye(4, device=dev).expand(2, 24, 4, 4).contiguous()
-    wT = synthetic_smpl_model(0, 6890, device=dev).lbs_weights_t
+    res = {"max_abs_err": 0.0, "device_ms": {}, "plain_ms": {}, "bound": {}}
+    cases = [(LBS_V, B, 0) for B in LBS_BATCHES]
+    cases += [(V, B, 0) for V, B in LBS_RAGGED] + [(LBS_V, 3, 1), (700, 8, 1)]
+    inputs = {}
+    for V, B, offset in cases:
+        wT, A, v = lbs_inputs(rs, B, V, dev, offset)
+        out = lbs_skinning(wT, A, v)
+        ref = lbs_skinning_reference(wT, A, v)
+        torch.cuda.synchronize()
+        if out.shape != (B, V, 3) or not torch.isfinite(out).all():
+            raise RuntimeError(f"lbs kernel output bad at B={B} V={V}")
+        err = (out - ref).abs().max().item()
+        where = (f" (inputs at storage offset {offset}, data_ptr % 16 = "
+                 f"{[t.data_ptr() % 16 for t in (wT, A, v)]})"
+                 if offset else "")
+        print(f"phase 2: lbs B={B} V={V}{where} max_abs_err={err:.3e}")
+        if not err <= KERNEL_ATOL:
+            raise RuntimeError(f"lbs kernel disagrees with the plain version "
+                               f"at B={B} V={V} offset={offset}: {err} > "
+                               f"{KERNEL_ATOL}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if V == LBS_V and not offset:
+            inputs[B] = (wT, A, v)
+    non_contig = torch.empty(2, 3, LBS_V, device=dev).transpose(1, 2)
+    wT, A, _ = inputs[1]
     try:
-        lbs_skinning(wT, A, non_contig)
+        lbs_skinning(wT, A.expand(2, -1, -1, -1).contiguous(), non_contig)
     except ValueError as e:
         print(f"phase 2: non-contiguous input raised: {e}")
     else:
         raise RuntimeError("lbs kernel accepted a non-contiguous input")
-    return results
+
+    for B, (wT, A, v) in inputs.items():
+        def kernel():
+            lbs_skinning(wT, A, v)
+
+        def plain():
+            lbs_skinning_reference(wT, A, v)
+
+        times = {kernel: [], plain: []}
+        for fn in (plain, kernel, kernel, plain):
+            times[fn] += device_ms(fn, launches=50 if fn is kernel else 10)
+        ms, plain_ms = (float(np.median(times[f])) for f in (kernel, plain))
+        bound_ms, bound_by = lbs_bound(B, LBS_V, wT.shape[0])
+        res["device_ms"][B], res["plain_ms"][B] = ms, plain_ms
+        res["bound"][B] = (bound_ms, bound_by)
+        print(f"phase 2: lbs B={B} V={LBS_V} device {ms:.5f} ms per launch "
+              f"(turns {np.median(times[kernel][:15]):.5f}/"
+              f"{np.median(times[kernel][15:]):.5f}), bound {bound_ms:.5f} ms "
+              f"({bound_by}), {bound_ms / ms:.1%} of bound; plain einsum "
+              f"{plain_ms:.5f} ms [{card}]")
+    wT, A, v = inputs[32]
+    res["host_us"] = host_us_per_call(lambda: lbs_skinning(wT, A, v))
+    print(f"phase 2: lbs wrapper host time {res['host_us']:.2f} us per call "
+          f"(B=32 V={LBS_V}, enqueue only, host clock) [{card}]")
+    return res
 
 
 def phase3_slice() -> dict:
@@ -419,13 +513,14 @@ def main() -> None:
     card = phase0_device()
     sys.path.insert(0, REPO)
     phase1_build()
-    kern = phase2_kernel()
+    kern = phase2_kernel(card)
     sl = phase3_slice()
     phase4_golden()
     p5 = phase5_engine()
     p6 = phase6_live(p5)
     phase7_timings(p5, card)
-    ms, plain_ms = kern["times"][256]
+    big = max(LBS_BATCHES)
+    bound_ms, bound_by = kern["bound"][big]
     by_path = {"eval": sl["launches"], "engine": p5["launches"],
                "live": p6["launches"]}
     print(json.dumps({"kernels": [{
@@ -434,7 +529,15 @@ def main() -> None:
         "replaces": "tepose_tpu/ops/lbs_pallas.py:76",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": kern["max_abs_err"],
-        "ms": ms, "plain_ms": plain_ms, "shape": "B=256 V=6890 J=24",
+        "ms": kern["device_ms"][big], "plain_ms": kern["plain_ms"][big],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "shape": f"B={big} V={LBS_V} J=24",
+        "device_ms_by_B": kern["device_ms"],
+        "plain_ms_by_B": kern["plain_ms"],
+        "bound_ms_by_B": {B: b[0] for B, b in kern["bound"].items()},
+        "share_of_bound_by_B": {B: kern["bound"][B][0] / ms
+                                for B, ms in kern["device_ms"].items()},
+        "host_us_per_call": kern["host_us"],
         "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

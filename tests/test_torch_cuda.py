@@ -43,7 +43,11 @@ def _inputs(V, B, device, seed=0):
     return wT, torch.from_numpy(A).to(device), torch.from_numpy(v).to(device)
 
 
-@pytest.mark.parametrize("V,B", [(6890, 1), (6890, 8), (6890, 256), (700, 3)])
+# every batch size of the main path at V = 6890 (live 1-32, engine 8 and
+# 48, eval 32, 160 and 192), the large batch, and ragged vertex counts
+@pytest.mark.parametrize("V,B", [(6890, 1), (6890, 8), (6890, 32), (6890, 48),
+                                 (6890, 160), (6890, 192), (6890, 256),
+                                 (700, 3), (301, 3)])
 def test_lbs_kernel_matches_plain(cuda, V, B):
     """fp32 atol 1e-5, as tests/test_lbs_pallas.py holds the TPU kernel."""
     wT, A, v = _inputs(V, B, cuda)
@@ -55,19 +59,51 @@ def test_lbs_kernel_matches_plain(cuda, V, B):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
 
 
-def test_lbs_kernel_rejects_bad_inputs(cuda):
-    wT, A, v = _inputs(700, 2, cuda)
-    with pytest.raises(ValueError, match="contiguous"):
-        LS.lbs_skinning(wT, A, v.transpose(1, 2).contiguous().transpose(1, 2))
-    with pytest.raises(TypeError, match="float32"):
-        LS.lbs_skinning(wT, A.double(), v)
-    with pytest.raises(ValueError, match="one CUDA device"):
-        LS.lbs_skinning(wT, A.cpu(), v)
-    with pytest.raises(RuntimeError, match="forward only"):
-        LS.lbs_skinning(wT, A, v.clone().requires_grad_())
-    with pytest.raises(ValueError, match="joints"):
-        LS.lbs_skinning(torch.zeros(33, 700, device=cuda),
-                        torch.zeros(2, 33, 4, 4, device=cuda), v)
+def test_lbs_kernel_takes_4_byte_aligned_views(cuda):
+    """Contiguous views at storage offset 1 of larger buffers: every input
+    only 4-byte aligned, and odd samples' rows off a 16-byte boundary."""
+    views = []
+    for t in _inputs(6890, 5, cuda):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        buf[1:] = t.reshape(-1)
+        views.append(buf[1:].view(t.shape))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in views)
+    out = LS.lbs_skinning(*views)
+    torch.testing.assert_close(out, LS.lbs_skinning_reference(*views),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("J", [1, 17, 32])
+def test_lbs_kernel_other_joint_counts(cuda, J):
+    """Joint counts other than SMPL's 24 run the 32-joint instantiation
+    with the missing joints zero."""
+    rs = np.random.RandomState(J)
+    w = rs.rand(J, 301).astype(np.float32)
+    A = rs.randn(4, J, 4, 4).astype(np.float32)
+    v = rs.randn(4, 301, 3).astype(np.float32)
+    wT, A, v = (torch.from_numpy(x).to(cuda) for x in (w, A, v))
+    torch.testing.assert_close(LS.lbs_skinning(wT, A, v),
+                               LS.lbs_skinning_reference(wT, A, v),
+                               atol=1e-5, rtol=0)
+
+
+def test_lbs_kernel_every_launch_shape(cuda):
+    """The kernel at every (threads, vertices per thread) the wrapper may
+    choose, each with several sample groups, against the plain version."""
+    B, V = 7, 1000
+    wT, A, v = _inputs(V, B, cuda)
+    ref = LS.lbs_skinning_reference(wT, A, v)
+    shapes = {}
+    for _, cfg in LS._candidates(B, V, 24, LS._num_sms(cuda), True):
+        shapes.setdefault((cfg.threads, cfg.verts_per_thread,
+                           cfg.groups in (1, 3, B)), cfg)
+    assert {k[:2] for k in shapes} == {(t, n) for t in LS.THREADS
+                                       for n in LS.VERTS_PER_THREAD}
+    for cfg in shapes.values():
+        out = torch.full_like(v, float("nan"))
+        LS._launch(wT, A, v, out, cfg)
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0,
+                                   msg=lambda m: f"{cfg}: {m}")
 
 
 def test_rollout_on_cuda_matches_cpu(cuda):
