@@ -64,11 +64,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 KERNEL_ATOL = 1e-5       # fp32, as tests/test_lbs_pallas.py holds the kernel
 # phase 2's shapes: the main path's launch sizes at V = 6890 (eval 32 and
-# 192, engine 8, live 1) and the large batch; ragged vertex counts
+# 192, engine 8, live 1) and the large batch; ragged vertex counts; views at
+# storage offset 1 for one and for four vertices per thread
 LBS_V, LBS_BATCHES = 6890, (1, 8, 32, 192, 256)
 LBS_RAGGED = ((700, 3), (301, 3))
-# the card's peaks for a bound: fp32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+LBS_OFFSET = ((LBS_V, 3), (700, 8), (LBS_V, 32))
 GOLDEN_J3D_ATOL = 1e-4   # 0.1 mm, the reproduction bar (BASELINE.md:64)
 GOLDEN_THETA_ATOL = 1e-3
 LIVE_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_live.py's bar
@@ -107,92 +107,9 @@ def phase1_build() -> float:
     return seconds
 
 
-def device_ms(fn, launches: int = 50, reps: int = 15) -> list:
-    """Device milliseconds per call of `fn`, one value per repeat.
-
-    Each repeat queues a sleep kernel, then the start event, `launches`
-    calls and the end event. The sleep outlasts the host's enqueueing, so
-    the device runs the calls back to back and the events time the device,
-    not how fast the host issues launches. Where the device reached the
-    start event before the host had queued the last call, the repeat is
-    run again with twice the sleep; it fails after a few doublings."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(launches):
-        fn()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    cycles = int(max(enqueue_s, 1e-3) * 8e9)   # ~4x the enqueue at 2 GHz
-    times = []
-    while len(times) < reps:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        queued_in_time = not start.query()
-        end.synchronize()
-        if not queued_in_time:
-            cycles *= 2
-            if cycles > 2e10:
-                raise RuntimeError("device_ms: the device keeps reaching "
-                                   "the start event before the launches "
-                                   "are queued")
-            continue
-        times.append(start.elapsed_time(end) / launches)
-    return times
-
-
-def host_us_per_call(fn, launches: int = 200) -> float:
-    """Host-clock microseconds per call of `fn`: its enqueue cost."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(launches):
-        fn()
-    us = 1e6 * (time.perf_counter() - t0) / launches
-    torch.cuda.synchronize()
-    return us
-
-
-def lbs_bound(B: int, V: int, J: int) -> tuple[float, str]:
-    """Least time in ms the card could take to skin B x V vertices, and
-    what sets it: 24 J + 18 flops per sample and vertex (the blend's 12 J
-    FMAs, the apply's 9 FMAs and 3 adds) at the fp32 peak, against v_posed,
-    the output, W^T and the transforms moved once at the memory rate."""
-    flops = (24 * J + 18) * B * V
-    nbytes = 4 * (2 * B * V * 3 + J * V + B * J * 16)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def lbs_inputs(rs, B: int, V: int, dev, offset: int = 0):
-    """wT (J, V), A (B, J, 4, 4), v (B, V, 3) on `dev`; with `offset`, each
-    is a contiguous view at that storage offset of a larger buffer."""
-    from tepose_tpu_torch.models.smpl import synthetic_smpl_model
-
-    wT = synthetic_smpl_model(0, V, device=dev).lbs_weights_t
-    J = wT.shape[0]
-    A = rs.randn(B, J, 4, 4).astype(np.float32)
-    A[:, :, 3] = [0, 0, 0, 1]
-    v = rs.randn(B, V, 3).astype(np.float32)
-    out = []
-    for t in (wT, torch.from_numpy(A).to(dev), torch.from_numpy(v).to(dev)):
-        if offset:
-            buf = torch.empty(t.numel() + offset, device=dev)
-            buf[offset:] = t.reshape(-1)
-            t = buf[offset:].view(t.shape)
-        out.append(t)
-    return out
-
-
 def phase2_kernel(card: str) -> dict:
+    from kernel_timing import (
+        device_ms, host_us_per_call, lbs_bound, lbs_inputs)
     from tepose_tpu_torch.ops.lbs_skinning import (
         lbs_skinning, lbs_skinning_reference)
 
@@ -200,7 +117,8 @@ def phase2_kernel(card: str) -> dict:
     rs = np.random.RandomState(0)
     res = {"max_abs_err": 0.0, "device_ms": {}, "plain_ms": {}, "bound": {}}
     cases = [(LBS_V, B, 0) for B in LBS_BATCHES]
-    cases += [(V, B, 0) for V, B in LBS_RAGGED] + [(LBS_V, 3, 1), (700, 8, 1)]
+    cases += [(V, B, 0) for V, B in LBS_RAGGED]
+    cases += [(V, B, 1) for V, B in LBS_OFFSET]
     inputs = {}
     for V, B, offset in cases:
         wT, A, v = lbs_inputs(rs, B, V, dev, offset)
@@ -283,7 +201,6 @@ def phase3_slice() -> dict:
 
 
 def phase4_golden() -> None:
-    sys.path.insert(0, os.path.join(REPO, "tools"))
     from make_torch_port_golden import (
         load_golden, port_rollout, port_setup, weight_checksums)
 
@@ -313,7 +230,6 @@ def phase4_golden() -> None:
 
 
 def serve_golden():
-    sys.path.insert(0, os.path.join(REPO, "tools"))
     import make_torch_serve_golden
 
     return make_torch_serve_golden
@@ -511,7 +427,7 @@ def phase7_timings(p5: dict, card: str) -> dict:
 
 def main() -> None:
     card = phase0_device()
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
     phase1_build()
     kern = phase2_kernel(card)
     sl = phase3_slice()

@@ -10,52 +10,46 @@
 // and, like the TPU kernel, never writes the (B, V, 4, 4) per-vertex
 // transform to device memory.
 //
-// What bounds it (V = 6890, J = 24; 594 flops per sample and vertex: 288
-// FMAs to blend, 9 FMAs and 3 adds to apply; bytes = v_posed + out + W^T + A,
+// What bounds it (V = 6890, J = 24; 594 flops per sample and vertex: the
+// blend's 288 FMAs and the apply's 9 FMAs; bytes = v_posed + out + W^T + A,
 // each once; 67 TFLOP/s fp32 without tensor cores, 3.35 TB/s):
 //   * B = 32:  0.131 GFLOP = 1.95 us against 6.0 MB = 1.79 us;
 //   * B = 256: 1.048 GFLOP = 15.6 us against 43.4 MB = 12.95 us.
 // Both sit on the FMA rate with the memory time close behind, so the blend
-// must run near the FMA rate while the data streams underneath it. Two
-// kernels, chosen per launch by ops/lbs_skinning.py::_launch_config:
+// must issue FMAs with little else in the way while the data streams.
 //
-//   * lbs_skin_tile_kernel, for large batches. Register tile: a thread
-//     blends 4 neighbouring vertices, so per joint two 8-byte loads of its 4
-//     weights and three broadcast 16-byte loads of the joint's 12 values feed
-//     48 FMAs into 48 accumulators (one shared load per 10 FMAs). J is a
-//     template parameter (24 for SMPL; any other J in 1..32 runs the
-//     32-joint code with the extra joints' weights and transforms zero), so
-//     the joint loop unrolls. W reuse: a block owns
-//     a tile of 4 * threads vertices and a run of samples; its W^T tile comes
-//     into shared memory once and serves every sample of the run, so W^T
-//     leaves L2 once per block, not once per sample. Streaming: a producer
-//     warp moves everything with TMA bulk copies (one instruction per
-//     contiguous range, no per-thread copy instructions in an issue-bound
-//     loop), double-buffered behind mbarriers, and stores each sample's
-//     results with one bulk store; the blending warps never meet at a block
-//     barrier.
-//   * lbs_skin_vertex_kernel, for small batches, where latency and not the
-//     FMA rate sets the time, and for inputs the tile kernel does not take.
-//     One thread per vertex, its J weights in registers for every sample,
-//     direct loads and stores, one barrier per sample.
+// Design. A thread owns VPT vertices (lane + 32 q of its warp's 32 * VPT
+// consecutive vertices) and keeps their J weights in registers for every
+// sample of its block's run of samples, so W^T leaves L2 once per block,
+// not once per sample. Per sample, the block stages the sample's transforms
+// (top three rows, 12 floats a joint) in shared memory with cp.async,
+// double-buffered behind one block barrier; per joint a thread then reads
+// the joint's 12 values with three broadcast 16-byte loads and does 12 * VPT
+// FMAs into 12 * VPT accumulators. J is a template parameter, so the joint
+// loop unrolls and the weights stay in registers.
+//   * VPT = 4 (SMPL's 24 joints, larger batches): 3 shared loads per 48
+//     FMAs; 96 weights + 48 accumulators per thread, about 200 registers,
+//     so a 64-thread block and four blocks an SM.
+//   * VPT = 1 (small batches, where latency and not the FMA rate sets the
+//     time, and any joint count 1..32 through the 32-joint instantiation
+//     with the missing joints' weights and transforms zero).
+// v_posed and the output move with 4-byte accesses: at a warp's lane
+// stride of 12 bytes, each access instruction covers 384 contiguous bytes.
+// The v_posed loads are issued before the blend that hides them.
 //
 // Alignment: with V = 6890 one sample's rows are 82,680 bytes, so an odd
 // sample starts 8 bytes off a 16-byte boundary; a row of W^T (27,560 bytes)
-// likewise, and a view at a storage offset is only 4-byte aligned. A bulk
-// copy needs 16-byte aligned ends, so the tile kernel copies each W^T row
-// and each sample's tile from the 16-byte boundary at or below its start and
-// lets it land shifted by its misalignment, which for even V and 16-byte
-// aligned tensors is 0 or 2 floats; it reads at the shift with 8-byte
-// accesses, bulk-stores the aligned interior of the output and writes the up
-// to 2 floats at either end from the threads that computed them. Odd V or a
-// tensor off a 16-byte boundary goes to the vertex kernel, which takes any
-// 4-byte alignment.
+// likewise, and a view at a storage offset is only 4-byte aligned. Only the
+// transforms are copied in 16-byte pieces, and only where the sample's
+// transforms start on a 16-byte boundary (4-byte copies otherwise);
+// everything else is read and written 4 bytes at a time, so any 4-byte
+// aligned tensor works.
 //
-// Launch shape: grid (tiles, groups); the groups split B into runs of
-// B / groups samples, the first B % groups runs one longer. The wrapper
-// picks the threads per block, the kernel and the group count from (B, V)
-// with a cost model fitted on the card, so that the grid fills the SMs in
-// one wave. The ragged last vertex tile is masked.
+// Launch shape: grid (tiles, groups) of blocks of `threads`; a tile is
+// threads * VPT vertices (the ragged last one masked), and the groups split
+// B into runs of B / groups samples, the first B % groups runs one longer.
+// The wrapper (ops/lbs_skinning.py::_launch_config) picks VPT from B and J
+// and as many groups as fill one wave of four blocks an SM.
 
 #include <cuda_runtime.h>
 
@@ -63,23 +57,26 @@
 
 namespace {
 
-constexpr int kMaxThreads = 128;
 constexpr int kMaxJoints = 32;
-constexpr int kBuffers = 2;  // samples in flight per block
+constexpr int kBlocksPerSM = 4;
+
+// Most threads a block of each variant takes (as in its __launch_bounds__):
+// four blocks of them fit an SM's 64K registers at the register count that
+// __launch_bounds__ then allows.
+constexpr int max_threads(int vpt) { return vpt == 1 ? 128 : 64; }
 
 __device__ __forceinline__ unsigned smem_addr(const float* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* smem, const float* gmem) {
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     smem_addr(smem)), "l"(gmem));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                     smem_addr(smem)), "l"(gmem), "n"(BYTES));
-  }
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(smem)), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(smem)), "l"(gmem));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -90,399 +87,118 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Bulk copies (TMA) and mbarriers: one thread moves a whole contiguous
-// range; addresses and sizes are multiples of 16 bytes.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(reinterpret_cast<float*>(bar))), "r"(count)
-               : "memory");
-}
-
-// Arrive on `bar` and expect `bytes` more from bulk copies in this phase.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(reinterpret_cast<float*>(bar))), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(reinterpret_cast<float*>(bar))) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(reinterpret_cast<float*>(bar))), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(reinterpret_cast<float*>(bar)))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(float* dst, const float* src,
-                                           unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until this thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Make this thread's generic-proxy writes to shared memory visible to bulk
-// copies issued after the next barrier.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Floats from `p` back to the last 16-byte boundary.
-__device__ __forceinline__ int misalign(const float* p) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
-}
-
-// Bytes of the widest piece (16, 8 or 4) at which `p` is aligned.
-__device__ __forceinline__ int piece_bytes(const float* p) {
-  const auto a = reinterpret_cast<uintptr_t>(p);
-  return (a & 15) == 0 ? 16 : (a & 7) == 0 ? 8 : 4;
-}
-
-// Shared-memory bytes of one block. One vertex per thread: two transform
-// buffers. Four vertices per thread, tiles of 4 * threads vertices: a pair
-// of mbarriers per buffer, the W^T tile with rows of tile + 4 floats, and
-// kBuffers buffers of transforms (16 floats a joint) and of v_posed
-// (3 * tile + 8 floats; the extra floats take a row's or a sample's
-// misalignment).
-__host__ __device__ constexpr int block_smem_bytes(int jp, int threads,
-                                                int vpt) {
-  return vpt == 1 ? 4 * 2 * jp * 12
-                  : 16 * kBuffers +
-                        4 * (jp * (4 * threads + 4) + kBuffers * jp * 16 +
-                             kBuffers * (12 * threads + 8));
-}
-
 // One sample's transforms into shared memory: rows 0..2 of each joint's
 // row-major 4x4, its first 12 floats; joints J..JP-1 are left alone.
-template <int JP>
 __device__ __forceinline__ void load_transforms(float* tf, const float* A_b,
                                                 int J, int tid, int T) {
-  if (piece_bytes(A_b) == 16) {
+  if ((reinterpret_cast<uintptr_t>(A_b) & 15) == 0) {
     for (int i = tid; i < J * 3; i += T) {
       const int j = i / 3, k = i - 3 * j;
-      cp_async<16>(tf + 12 * j + 4 * k, A_b + 16 * j + 4 * k);
+      cp_async16(tf + 12 * j + 4 * k, A_b + 16 * j + 4 * k);
     }
   } else {
     for (int i = tid; i < J * 12; i += T) {
       const int j = i / 12, k = i - 12 * j;
-      cp_async<4>(tf + i, A_b + 16 * j + k);
+      cp_async4(tf + i, A_b + 16 * j + k);
     }
   }
 }
 
-// Blend joint j's 12 transform values into acc with weight w.
-__device__ __forceinline__ void blend(float (&acc)[12], float w,
-                                      const float* tf_j) {
-  const float4* t4 = reinterpret_cast<const float4*>(tf_j);
-  const float4 r0 = t4[0], r1 = t4[1], r2 = t4[2];
-  const float t[12] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
-                       r1.z, r1.w, r2.x, r2.y, r2.z, r2.w};
-#pragma unroll
-  for (int r = 0; r < 12; ++r) acc[r] = fmaf(w, t[r], acc[r]);
-}
-
-// One thread per vertex, for small batches, where latency and not the FMA
-// rate sets the time. The thread keeps its vertex's J weights in registers
-// for every sample of its group, reads v_posed and writes the output
-// directly (a warp covers 384 contiguous bytes with three accesses), and
-// only the transforms go through shared memory: one barrier per sample.
-template <int JP>
-__global__ void __launch_bounds__(kMaxThreads)
-lbs_skin_vertex_kernel(const float* __restrict__ wT,
-                       const float* __restrict__ A,
-                       const float* __restrict__ v, float* __restrict__ out,
-                       int B, int V, int J, int groups) {
-  extern __shared__ float4 smem4[];
-  float* s_tf = reinterpret_cast<float*>(smem4);  // [2][JP * 12]
+template <int JP, int VPT>
+__global__ void __launch_bounds__(VPT == 1 ? 128 : 64, kBlocksPerSM)
+lbs_skin_kernel(const float* __restrict__ wT, const float* __restrict__ A,
+                const float* __restrict__ v, float* __restrict__ out, int B,
+                int V, int J, int groups) {
+  __shared__ __align__(16) float s_tf[2 * JP * 12];  // two samples' joints
   const int T = blockDim.x, tid = threadIdx.x;
-  const int vtx = blockIdx.x * T + tid;
-  const bool live = vtx < V;
+  // this thread's vertex q is first + 32 q
+  const int first = blockIdx.x * T * VPT + (tid >> 5) * 32 * VPT + (tid & 31);
   const int g = blockIdx.y, per = B / groups, extra = B % groups;
   const int b_begin = g * per + min(g, extra);
   const int b_end = b_begin + per + (g < extra ? 1 : 0);
 
-  float w[JP];
+  float w[VPT][JP];
 #pragma unroll
-  for (int j = 0; j < JP; ++j) {
-    w[j] = (j < J && live) ? __ldg(&wT[static_cast<size_t>(j) * V + vtx])
-                           : 0.0f;
+  for (int q = 0; q < VPT; ++q) {
+    const int vtx = first + 32 * q;
+#pragma unroll
+    for (int j = 0; j < JP; ++j) {
+      w[q][j] = (j < J && vtx < V)
+                    ? __ldg(&wT[static_cast<size_t>(j) * V + vtx])
+                    : 0.0f;
+    }
   }
+  // joints J..JP-1: zero transforms, never overwritten
   for (int i = J * 12 + tid; i < JP * 12; i += T) {
     s_tf[i] = 0.0f;
     s_tf[JP * 12 + i] = 0.0f;
   }
-  load_transforms<JP>(s_tf, A + static_cast<size_t>(b_begin) * J * 16, J,
-                      tid, T);
+  load_transforms(s_tf, A + static_cast<size_t>(b_begin) * J * 16, J, tid, T);
   cp_async_commit();
-  const float* v_b = v + (static_cast<size_t>(b_begin) * V + vtx) * 3;
-  float x = 0.0f, y = 0.0f, z = 0.0f;
-  if (live) { x = __ldg(v_b); y = __ldg(v_b + 1); z = __ldg(v_b + 2); }
 
   for (int b = b_begin; b < b_end; ++b) {
     const int buf = (b - b_begin) & 1;
+    float p[VPT][3];  // v_posed, used after the blend
+#pragma unroll
+    for (int q = 0; q < VPT; ++q) {
+      const int vtx = first + 32 * q;
+      const float* vp = v + (static_cast<size_t>(b) * V + vtx) * 3;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) p[q][k] = vtx < V ? __ldg(vp + k) : 0.0f;
+    }
     cp_async_wait_all();
     __syncthreads();  // buf is in; every thread is done with buf ^ 1
-    float nx = 0.0f, ny = 0.0f, nz = 0.0f;
     if (b + 1 < b_end) {
-      load_transforms<JP>(s_tf + (buf ^ 1) * JP * 12,
-                          A + static_cast<size_t>(b + 1) * J * 16, J, tid, T);
-      if (live) {
-        const float* n_b = v + (static_cast<size_t>(b + 1) * V + vtx) * 3;
-        nx = __ldg(n_b); ny = __ldg(n_b + 1); nz = __ldg(n_b + 2);
-      }
+      load_transforms(s_tf + (buf ^ 1) * JP * 12,
+                      A + static_cast<size_t>(b + 1) * J * 16, J, tid, T);
     }
     cp_async_commit();
 
-    const float* tf = s_tf + buf * JP * 12;
-    float acc[12];
+    // acc[q] = top three rows of sum_j W[vertex q, j] * A[b, j]
+    const float4* t4 = reinterpret_cast<const float4*>(s_tf + buf * JP * 12);
+    float acc[VPT][12];
 #pragma unroll
-    for (int r = 0; r < 12; ++r) acc[r] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < JP; ++j) blend(acc, w[j], tf + 12 * j);
-    if (live) {
-      float* o = out + (static_cast<size_t>(b) * V + vtx) * 3;
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        o[r] = acc[4 * r] * x + acc[4 * r + 1] * y + acc[4 * r + 2] * z +
-               acc[4 * r + 3];
-      }
-    }
-    x = nx; y = ny; z = nz;
-  }
-}
-
-// Four vertices per thread, for large batches, where the FMA rate sets the
-// bound. Takes even V and 16-byte aligned tensors (the wrapper sends other
-// inputs to the one-vertex kernel). The block is `threads` blending threads
-// and one producer warp. The producer's lane 0 moves all data with bulk
-// copies: the block's W^T tile once, and per sample the transforms and the
-// tile's v_posed rows into one of kBuffers buffers ("full" mbarrier), and,
-// once the blending warps have written their results over that sample's
-// v_posed ("done" mbarrier), the results out in one bulk store. The
-// blending warps never wait on each other or on a store.
-//
-// A bulk copy needs 16-byte aligned ends, so each W^T row and each sample's
-// tile is copied from the 16-byte boundary at or below its start and lands
-// shifted by its misalignment (0 or 2 floats: V is even). Reads are 8-byte
-// accesses at the shift. The store covers the 16-byte aligned interior of
-// the output rows; the up to 2 floats at either end go out from the threads
-// that computed them.
-template <int JP>
-__global__ void __launch_bounds__(kMaxThreads + 32)
-lbs_skin_tile_kernel(const float* __restrict__ wT, const float* __restrict__ A,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     int B, int V, int J, int groups) {
-  extern __shared__ float4 smem4[];
-  constexpr int NB = kBuffers;
-  const int T = blockDim.x - 32;  // blending threads
-  const int TV = 4 * T, TVP = TV + 4, NV = 3 * TV + 8;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem4);  // [NB]
-  uint64_t* done = full + NB;                           // [NB]
-  float* s_w = reinterpret_cast<float*>(smem4 + NB);    // [JP][TVP]
-  float* s_tf = s_w + JP * TVP;                         // [NB][JP * 16]
-  float* s_v = s_tf + NB * JP * 16;                     // [NB][NV]
-
-  const int t = threadIdx.x;
-  const int v0 = blockIdx.x * TV;
-  const int nv = min(TV, V - v0);  // vertices of this tile
-  const int n = 3 * nv;            // floats of this tile in one sample
-  // samples of this block: B split into `groups` runs, the first B % groups
-  // one longer
-  const int g = blockIdx.y, per = B / groups, extra = B % groups;
-  const int b_begin = g * per + min(g, extra);
-  const int b_end = b_begin + per + (g < extra ? 1 : 0);
-
-  // Joints J..JP-1: zero weights and transforms, never overwritten.
-  for (int i = J * TVP + t; i < JP * TVP; i += blockDim.x) s_w[i] = 0.0f;
-  for (int i = t; i < NB * JP * 16; i += blockDim.x) {
-    if (i % (JP * 16) >= J * 16) s_tf[i] = 0.0f;
-  }
-  if (t == 0) {
-    for (int k = 0; k < NB; ++k) {
-      mbar_init(&full[k], 1);
-      mbar_init(&done[k], T / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (t >= T) {  // the producer warp
-    if (t != T) return;
-    // sample b's transforms and v_posed tile into buffer `buf`, and with
-    // `with_w` the W^T tile, all counted on full[buf]
-    auto issue = [&](int b, int buf, bool with_w) {
-      const float* src_v = v + (static_cast<size_t>(b) * V + v0) * 3;
-      const int mv = misalign(src_v);
-      const unsigned v_bytes = 4u * ((mv + n + 3) & ~3);
-      unsigned bytes = 64u * J + v_bytes;
-      if (with_w) {
-        for (int j = 0; j < J; ++j) {
-          const int mw = misalign(wT + static_cast<size_t>(j) * V + v0);
-          bytes += 4u * ((mw + nv + 3) & ~3);
-        }
-      }
-      mbar_expect(&full[buf], bytes);
-      if (with_w) {
-        for (int j = 0; j < J; ++j) {
-          const float* src_w = wT + static_cast<size_t>(j) * V + v0;
-          const int mw = misalign(src_w);
-          bulk_load(s_w + j * TVP, src_w - mw, 4u * ((mw + nv + 3) & ~3),
-                    &full[buf]);
-        }
-      }
-      bulk_load(s_tf + buf * JP * 16, A + static_cast<size_t>(b) * J * 16,
-                64u * J, &full[buf]);
-      bulk_load(s_v + buf * NV, src_v - mv, v_bytes, &full[buf]);
-    };
-    for (int k = 0; k < NB && b_begin + k < b_end; ++k) {
-      issue(b_begin + k, k, k == 0);
-    }
-    for (int b = b_begin, it = 0, buf = 0; b < b_end;
-         ++b, ++it, buf = buf + 1 == NB ? 0 : buf + 1) {
-      mbar_wait(&done[buf], (it / NB) & 1);
-      float* out_b = out + (static_cast<size_t>(b) * V + v0) * 3;
-      const int mv = misalign(out_b);
-      const int lo = (4 - mv) & 3, hi = (mv + n) / 4 * 4 - mv;
-      if (hi > lo) {
-        bulk_store(out_b + lo, s_v + buf * NV + mv + lo, 4u * (hi - lo));
-      }
-      if (b + NB < b_end) {
-        bulk_wait_read();  // the store has read buf
-        issue(b + NB, buf, false);
-      }
-    }
-    bulk_wait();
-    return;
-  }
-
-  // This thread's 4 weights of joint j start at s_w + j * TVP + 4 t + the
-  // row's shift: rows alternate between two shifts (V is even).
-  const int mw0 = misalign(wT + v0);
-  const float* w_even = s_w + 4 * t + mw0;
-  const float* w_odd = s_w + 4 * t + ((mw0 + V) & 3);
-
-  for (int b = b_begin, it = 0, buf = 0; b < b_end;
-       ++b, ++it, buf = buf + 1 == NB ? 0 : buf + 1) {
-    mbar_wait(&full[buf], (it / NB) & 1);
-
-    // Blend: acc[q] = top three rows of sum_j W[v0 + 4 t + q, j] * A[b, j].
-    const float* tf = s_tf + buf * JP * 16;
-    float acc[4][12];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < VPT; ++q) {
 #pragma unroll
       for (int r = 0; r < 12; ++r) acc[q][r] = 0.0f;
     }
 #pragma unroll
     for (int j = 0; j < JP; ++j) {
-      // two 8-byte loads of 4 weights, three broadcast 16-byte loads of the
-      // joint's 12 values, 48 FMAs
-      const float2* wp =
-          reinterpret_cast<const float2*>((j & 1 ? w_odd : w_even) + j * TVP);
-      const float2 w01 = wp[0], w23 = wp[1];
-      const float w[4] = {w01.x, w01.y, w23.x, w23.y};
-      const float4* t4 = reinterpret_cast<const float4*>(tf + 16 * j);
-      const float4 r0 = t4[0], r1 = t4[1], r2 = t4[2];
-      const float tj[12] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
-                            r1.z, r1.w, r2.x, r2.y, r2.z, r2.w};
+      const float4 r0 = t4[3 * j], r1 = t4[3 * j + 1], r2 = t4[3 * j + 2];
+      const float t[12] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
+                           r1.z, r1.w, r2.x, r2.y, r2.z, r2.w};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < VPT; ++q) {
 #pragma unroll
-        for (int r = 0; r < 12; ++r) acc[q][r] = fmaf(w[q], tj[r], acc[q][r]);
+        for (int r = 0; r < 12; ++r) acc[q][r] = fmaf(w[q][j], t[r], acc[q][r]);
       }
     }
 
-    // Apply to this thread's 4 vertices, 12 floats of v_posed at the
-    // sample's shift, and write the result over them.
-    float* out_b = out + (static_cast<size_t>(b) * V + v0) * 3;
-    const int mv = misalign(out_b);  // == v_posed's: both bases are aligned
-    float2* sv = reinterpret_cast<float2*>(s_v + buf * NV + mv + 12 * t);
-    float p[12], o[12];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const float2 x = sv[k];
-      p[2 * k] = x.x; p[2 * k + 1] = x.y;
-    }
+    for (int q = 0; q < VPT; ++q) {
+      const int vtx = first + 32 * q;
+      if (vtx < V) {
+        float* o = out + (static_cast<size_t>(b) * V + vtx) * 3;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float x = p[3 * q], y = p[3 * q + 1], z = p[3 * q + 2];
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        const float* a = acc[q] + 4 * r;
-        o[3 * q + r] = a[0] * x + a[1] * y + a[2] * z + a[3];
+        for (int r = 0; r < 3; ++r) {
+          const float* a = acc[q] + 4 * r;
+          o[r] = fmaf(a[0], p[q][0],
+                      fmaf(a[1], p[q][1], fmaf(a[2], p[q][2], a[3])));
+        }
       }
     }
-#pragma unroll
-    for (int k = 0; k < 6; ++k) sv[k] = make_float2(o[2 * k], o[2 * k + 1]);
-    // The producer stores the aligned interior [lo, hi) of the output
-    // floats [0, n); the floats before lo and from hi on go out here.
-    const int lo = (4 - mv) & 3, hi = (mv + n) / 4 * 4 - mv;
-    if (12 * t < lo || 12 * t + 12 > hi) {
-#pragma unroll
-      for (int k = 0; k < 12; ++k) {
-        const int i = 12 * t + k;
-        if ((i < lo || i >= hi) && i < n) out_b[i] = o[k];
-      }
-    }
-    fence_proxy_async();  // the bulk store will read what this thread wrote
-    __syncwarp();
-    if ((t & 31) == 0) mbar_arrive(&done[buf]);
   }
 }
 
-template <int JP>
-cudaError_t launch(const float* wT, const float* A, const float* v,
-                   float* out, int B, int V, int J, int threads,
-                   int verts_per_thread, int groups, int smem_bytes,
-                   cudaStream_t stream) {
-  const int tile = threads * verts_per_thread;
-  const dim3 grid((V + tile - 1) / tile, groups);
-  if (verts_per_thread == 1) {
-    lbs_skin_vertex_kernel<JP><<<grid, threads, smem_bytes, stream>>>(
-        wT, A, v, out, B, V, J, groups);
-    return cudaGetLastError();
+// The instantiation for J joints and VPT vertices per thread: four
+// vertices for SMPL's 24 joints only, one for 24 or (zero-padded) 32.
+const void* kernel_for(int J, int vpt) {
+  if (vpt == 4) {
+    return J == 24 ? reinterpret_cast<const void*>(&lbs_skin_kernel<24, 4>)
+                   : nullptr;
   }
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lbs_skin_tile_kernel<JP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
-  }
-  lbs_skin_tile_kernel<JP><<<grid, threads + 32, smem_bytes, stream>>>(
-      wT, A, v, out, B, V, J, groups);
-  return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  return J == 24 ? reinterpret_cast<const void*>(&lbs_skin_kernel<24, 1>)
+                 : reinterpret_cast<const void*>(&lbs_skin_kernel<kMaxJoints, 1>);
 }
 
 }  // namespace
@@ -491,25 +207,20 @@ extern "C" {
 
 // wT (J, V), A (B, J, 4, 4), v (B, V, 3), out (B, V, 3): contiguous fp32 on
 // one device, 4-byte aligned. The launch shape comes from the caller
-// (ops/lbs_skinning.py::_launch_config): `threads` per block (a multiple of
-// 32, at most kMaxThreads), `verts_per_thread` (1, or 4 for even V and
-// 16-byte aligned tensors), `groups` sample groups (1..B) and `smem_bytes`,
-// which must equal what the kernel lays out. Launches on `stream` and
-// returns cudaGetLastError() after the launch (0 on success);
-// cudaErrorInvalidValue for a shape it does not take. It does not
-// synchronise.
+// (ops/lbs_skinning.py::_launch_config): `verts_per_thread` (1, or 4 for
+// J = 24), `threads` per block (a multiple of 32, at most 128 for one
+// vertex per thread and 64 for four) and `groups` sample groups (1..B).
+// Launches on `stream` and returns cudaGetLastError() after the launch (0
+// on success); cudaErrorInvalidValue for a shape it does not take. It does
+// not synchronise.
 int tepose_lbs_skin_f32(const float* wT, const float* A, const float* v,
                         float* out, int B, int V, int J, int threads,
-                        int verts_per_thread, int groups, int smem_bytes,
-                        void* stream) {
-  const int jp = J == 24 ? 24 : kMaxJoints;
-  const bool tiles = verts_per_thread == 4;
-  if (B < 1 || V < 1 || J < 1 || J > kMaxJoints || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 || groups < 1 ||
-      groups > B || (verts_per_thread != 1 && !tiles) ||
-      (tiles && (V % 2 != 0 || !aligned16(wT) || !aligned16(A) ||
-                 !aligned16(v) || !aligned16(out))) ||
-      smem_bytes != block_smem_bytes(jp, threads, verts_per_thread)) {
+                        int verts_per_thread, int groups, void* stream) {
+  if (B < 1 || V < 1 || J < 1 || J > kMaxJoints ||
+      (verts_per_thread != 1 && verts_per_thread != 4) || threads < 32 ||
+      threads % 32 != 0 || threads > max_threads(verts_per_thread) ||
+      groups < 1 || groups > B || groups > 65535 ||
+      kernel_for(J, verts_per_thread) == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // This library carries its own CUDA runtime, whose current device is not
@@ -520,13 +231,32 @@ int tepose_lbs_skin_f32(const float* wT, const float* A, const float* v,
   err = cudaSetDevice(attr.device);
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  const int tile = threads * verts_per_thread;
+  const dim3 grid((V + tile - 1) / tile, groups);
   const auto s = static_cast<cudaStream_t>(stream);
-  err = jp == 24 ? launch<24>(wT, A, v, out, B, V, J, threads,
-                              verts_per_thread, groups, smem_bytes, s)
-                 : launch<kMaxJoints>(wT, A, v, out, B, V, J, threads,
-                                      verts_per_thread, groups, smem_bytes,
-                                      s);
-  return static_cast<int>(err);
+  if (verts_per_thread == 4) {
+    lbs_skin_kernel<24, 4><<<grid, threads, 0, s>>>(wT, A, v, out, B, V, J,
+                                                     groups);
+  } else if (J == 24) {
+    lbs_skin_kernel<24, 1><<<grid, threads, 0, s>>>(wT, A, v, out, B, V, J,
+                                                     groups);
+  } else {
+    lbs_skin_kernel<kMaxJoints, 1><<<grid, threads, 0, s>>>(wT, A, v, out, B,
+                                                             V, J, groups);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of `threads` that one SM holds at once for the instantiation the
+// launch of J joints and `verts_per_thread` uses (the wrapper's launch rule
+// assumes four); negative on error.
+int tepose_lbs_blocks_per_sm(int J, int verts_per_thread, int threads) {
+  const void* fn = kernel_for(J, verts_per_thread);
+  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads, 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 const char* tepose_cuda_error_string(int code) {

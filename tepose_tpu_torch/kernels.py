@@ -74,8 +74,10 @@ def lbs_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build("tepose_lbs", ["lbs_skinning.cu"])))
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.tepose_lbs_skin_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.tepose_lbs_skin_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.tepose_lbs_skin_f32.restype = i
+    lib.tepose_lbs_blocks_per_sm.argtypes = [i, i, i]
+    lib.tepose_lbs_blocks_per_sm.restype = i
     lib.tepose_cuda_error_string.argtypes = [i]
     lib.tepose_cuda_error_string.restype = ctypes.c_char_p
     return lib

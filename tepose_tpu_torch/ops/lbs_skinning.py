@@ -11,13 +11,13 @@ the kernel to the einsum. Forward only: the CUDA path refuses inputs that
 require grad while grad is enabled (training reads joints through the
 vertex-free path and never skins the mesh).
 
-The kernel is compiled for 24 joints (SMPL) and for 32; any other count in
-1..32 runs the 32-joint code with the missing joints' weights and transforms
-zero. It has two variants: one vertex per thread (small batches, and any V
-or alignment) and four vertices per thread fed by bulk copies (even V and
-16-byte aligned tensors, which the main path always has). `_launch_config`
-chooses the variant and launch shape from (B, V, J) and the SM count, in
-Python, so the CPU tests can check the index arithmetic.
+The kernel keeps each thread's vertex weights in registers across a run of
+samples. It is compiled for four vertices per thread at 24 joints (SMPL),
+for batches of `FOUR_VERTEX_MIN_BATCH` samples or more, and for one vertex
+per thread at 24 and at 32 joints, which takes any other count in 1..32 with
+the missing joints zero. `_launch_config` picks the launch shape from
+(B, V, J) and the SM count in Python, so the CPU tests can check the index
+arithmetic.
 """
 
 from __future__ import annotations
@@ -34,31 +34,14 @@ import torch
 LAUNCHES = 0
 
 MAX_JOINTS = 32
-
-# What the kernel takes (csrc/lbs_skinning.cu) and what one Hopper SM holds.
-THREADS = (32, 64, 96, 128)
-VERTS_PER_THREAD = (1, 4)
-SMEM_PER_BLOCK = 232_448    # 227 KB, the opt-in maximum of one block
-SMEM_PER_SM = 233_472       # 228 KB
-SMEM_RESERVED_PER_BLOCK = 1024
-MAX_BLOCKS_PER_SM = 32
-MAX_THREADS_PER_SM = 2048
-REGS_PER_SM = 65_536
 MAX_GRID_Y = 65_535
-BUFFERS = 2                 # samples in flight per four-vertex block
-# Registers a thread of each variant needs at 24 joints (vertices per
-# thread: registers), from `nvcc -Xptxas -v` (tools/lbs_kernel_bench.py
-# --ptxas), rounded up to the allocation unit of 8.
-REGS_PER_THREAD = {1: 128, 4: 96}
-# Cost model, in cycles of one warp, fitted to a sweep of every launch
-# shape on an H100 (tools/lbs_kernel_bench.py --sweep): a sample's blend
-# and apply for 32 * VPT vertices, and a block's set-up (its weights and
-# first sample), by vertices per thread. A scheduler needs about
-# MIN_WARPS_PER_SCHEDULER warps to hide the latency of the loop, so fewer
-# are charged as that many.
-SAMPLE_CYCLES = {1: 300, 4: 1000}
-BLOCK_SETUP_CYCLES = {1: 200, 4: 1000}
-MIN_WARPS_PER_SCHEDULER = 3
+# Threads of a block, by vertices per thread, as csrc/lbs_skinning.cu's
+# __launch_bounds__ allow them (four blocks an SM fit by registers).
+THREADS = {1: 128, 4: 64}
+BLOCKS_PER_SM = 4
+# From this batch size up a thread blends four vertices (24 joints only):
+# below it, latency and not the FMA rate sets the time.
+FOUR_VERTEX_MIN_BATCH = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +53,6 @@ class LaunchConfig:
     verts_per_thread: int
     tiles: int
     groups: int
-    joints_padded: int
-    smem_bytes: int
 
     @property
     def tile(self) -> int:
@@ -79,28 +60,10 @@ class LaunchConfig:
         return self.threads * self.verts_per_thread
 
 
-def padded_joints(J: int) -> int:
-    """The joint count the kernel is instantiated for."""
-    return 24 if J == 24 else MAX_JOINTS
-
-
-def smem_bytes(joints_padded: int, threads: int, verts_per_thread: int) -> int:
-    """Dynamic shared memory of one block, as csrc/lbs_skinning.cu::
-    block_smem_bytes lays it out. One vertex per thread: two transform
-    buffers. Four: a pair of mbarriers per buffer, the W^T tile with rows
-    of tile + 4 floats, and BUFFERS buffers of transforms (16 floats a
-    joint) and of v_posed (3 * tile + 8 floats)."""
-    if verts_per_thread == 1:
-        return 4 * 2 * joints_padded * 12
-    return 16 * BUFFERS + 4 * (joints_padded * (4 * threads + 4)
-                               + BUFFERS * joints_padded * 16
-                               + BUFFERS * (12 * threads + 8))
-
-
-def block_threads(threads: int, verts_per_thread: int) -> int:
-    """Threads a block launches: the four-vertex kernel adds a producer
-    warp that issues its bulk copies."""
-    return threads + 32 if verts_per_thread == 4 else threads
+def smem_bytes(J: int) -> int:
+    """Static shared memory of one block: two samples' transforms, 12 floats
+    a joint, for the joint count the kernel is instantiated for."""
+    return 4 * 2 * 12 * (24 if J == 24 else MAX_JOINTS)
 
 
 def sample_range(group: int, B: int, groups: int) -> tuple[int, int]:
@@ -111,63 +74,18 @@ def sample_range(group: int, B: int, groups: int) -> tuple[int, int]:
     return begin, begin + per + (group < extra)
 
 
-def blocks_per_sm(threads: int, verts_per_thread: int, smem: int) -> int:
-    n = block_threads(threads, verts_per_thread)
-    return min(MAX_BLOCKS_PER_SM, MAX_THREADS_PER_SM // n,
-               SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK),
-               REGS_PER_SM // (REGS_PER_THREAD[verts_per_thread] * n))
-
-
-def _candidates(B: int, V: int, J: int, num_sms: int, tiles_ok: bool):
-    """Every launch shape that fits, with its modelled cost as a sort key.
-    `tiles_ok`: the four-vertex kernel takes these inputs (V even, every
-    tensor 16-byte aligned).
-
-    A block owns a tile of threads * VPT vertices and a run of at most
-    ceil(B / groups) samples. Blocks resident at once per SM follow from
-    shared memory, threads and registers; a wave is that times the SM
-    count. The model charges each of an SM's four schedulers, per wave, the
-    warps it runs (at least MIN_WARPS_PER_SCHEDULER) times the samples per
-    block times a sample's cycles, plus a block's set-up. Ties go to fewer
-    blocks (more W^T reuse).
-    """
-    jp = padded_joints(J)
-    for vpt in VERTS_PER_THREAD if tiles_ok else (1,):
-        for threads in THREADS:
-            tile = threads * vpt
-            smem = smem_bytes(jp, threads, vpt)
-            if smem > SMEM_PER_BLOCK:
-                continue
-            tiles = math.ceil(V / tile)
-            slots = num_sms * blocks_per_sm(threads, vpt, smem)
-            warps = threads // 32
-            for groups in range(1, min(B, MAX_GRID_Y,
-                                       max(1, slots // tiles)) + 1):
-                blocks = tiles * groups
-                waves = math.ceil(blocks / slots)
-                per_sm = math.ceil(min(blocks, slots) / num_sms)
-                rounds = max(MIN_WARPS_PER_SCHEDULER,
-                             math.ceil(per_sm * warps / 4))
-                cost = waves * rounds * (math.ceil(B / groups)
-                                         * SAMPLE_CYCLES[vpt]
-                                         + BLOCK_SETUP_CYCLES[vpt])
-                yield ((cost, blocks),
-                       LaunchConfig(threads, vpt, tiles, groups, jp, smem))
-
-
 @functools.cache
-def _launch_config(B: int, V: int, J: int, num_sms: int,
-                   tiles_ok: bool = True) -> LaunchConfig:
-    """The launch shape with the least modelled time for B samples of V
-    vertices on `num_sms` SMs (see `_candidates`)."""
-    return min(_candidates(B, V, J, num_sms, tiles_ok),
-               key=lambda kc: kc[0])[1]
-
-
-def _tiles_ok(V: int, *tensors: torch.Tensor) -> bool:
-    """Whether the four-vertex kernel takes these inputs: even V and every
-    tensor at a 16-byte aligned address."""
-    return V % 2 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+def _launch_config(B: int, V: int, J: int, num_sms: int) -> LaunchConfig:
+    """Four vertices per thread for 24 joints from FOUR_VERTEX_MIN_BATCH
+    samples up, else one; as many sample groups as fill one wave of
+    BLOCKS_PER_SM blocks on each of `num_sms` SMs, at most one per sample
+    (more groups split the samples finer but load each block's weights
+    again)."""
+    vpt = 4 if J == 24 and B >= FOUR_VERTEX_MIN_BATCH else 1
+    threads = THREADS[vpt]
+    tiles = math.ceil(V / (threads * vpt))
+    groups = max(1, min(B, MAX_GRID_Y, BLOCKS_PER_SM * num_sms // tiles))
+    return LaunchConfig(threads, vpt, tiles, groups)
 
 
 @functools.cache
@@ -226,9 +144,8 @@ def lbs_skinning(wT: torch.Tensor, rel_tf: torch.Tensor,
     out = torch.empty((B, V, 3), dtype=torch.float32, device=v_posed.device)
     if B == 0 or V == 0:
         return out
-    cfg = _launch_config(B, V, J, _num_sms(v_posed.device),
-                         _tiles_ok(V, wT, rel_tf, v_posed, out))
-    return _launch(wT, rel_tf, v_posed, out, cfg)
+    return _launch(wT, rel_tf, v_posed, out,
+                   _launch_config(B, V, J, _num_sms(v_posed.device)))
 
 
 def _launch(wT, rel_tf, v_posed, out, cfg: LaunchConfig) -> torch.Tensor:
@@ -243,7 +160,7 @@ def _launch(wT, rel_tf, v_posed, out, cfg: LaunchConfig) -> torch.Tensor:
         ctypes.c_void_p(wT.data_ptr()), ctypes.c_void_p(rel_tf.data_ptr()),
         ctypes.c_void_p(v_posed.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         v_posed.shape[0], V, J, cfg.threads, cfg.verts_per_thread,
-        cfg.groups, cfg.smem_bytes, ctypes.c_void_p(stream))
+        cfg.groups, ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.tepose_cuda_error_string(err).decode()
         raise RuntimeError(f"lbs_skinning kernel launch failed: {msg} ({err})")

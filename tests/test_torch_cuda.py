@@ -1,5 +1,5 @@
 """CUDA-only tests of the port: the LBS skinning kernel against its plain
-version, its input checks, and the eval rollout, the serving engine and
+version, its input checks and launch shapes, and the eval rollout, the serving engine and
 the live session on the card against the CPU.
 
 They skip where no CUDA device is visible. This file imports no JAX, so on a
@@ -59,11 +59,13 @@ def test_lbs_kernel_matches_plain(cuda, V, B):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
 
 
-def test_lbs_kernel_takes_4_byte_aligned_views(cuda):
+@pytest.mark.parametrize("B", [5, 32])
+def test_lbs_kernel_takes_4_byte_aligned_views(cuda, B):
     """Contiguous views at storage offset 1 of larger buffers: every input
-    only 4-byte aligned, and odd samples' rows off a 16-byte boundary."""
+    only 4-byte aligned, and odd samples' rows off a 16-byte boundary, for
+    one (B = 5) and four (B = 32) vertices per thread."""
     views = []
-    for t in _inputs(6890, 5, cuda):
+    for t in _inputs(6890, B, cuda):
         buf = torch.empty(t.numel() + 1, device=cuda)
         buf[1:] = t.reshape(-1)
         views.append(buf[1:].view(t.shape))
@@ -71,6 +73,21 @@ def test_lbs_kernel_takes_4_byte_aligned_views(cuda):
     out = LS.lbs_skinning(*views)
     torch.testing.assert_close(out, LS.lbs_skinning_reference(*views),
                                atol=1e-5, rtol=0)
+
+
+def test_lbs_kernel_rejects_bad_inputs(cuda):
+    wT, A, v = _inputs(700, 2, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        LS.lbs_skinning(wT, A, v.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(TypeError, match="float32"):
+        LS.lbs_skinning(wT, A.double(), v)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        LS.lbs_skinning(wT, A.cpu(), v)
+    with pytest.raises(RuntimeError, match="forward only"):
+        LS.lbs_skinning(wT, A, v.clone().requires_grad_())
+    with pytest.raises(ValueError, match="joints"):
+        LS.lbs_skinning(torch.zeros(33, 700, device=cuda),
+                        torch.zeros(2, 33, 4, 4, device=cuda), v)
 
 
 @pytest.mark.parametrize("J", [1, 17, 32])
@@ -88,22 +105,35 @@ def test_lbs_kernel_other_joint_counts(cuda, J):
 
 
 def test_lbs_kernel_every_launch_shape(cuda):
-    """The kernel at every (threads, vertices per thread) the wrapper may
-    choose, each with several sample groups, against the plain version."""
+    """The kernel at every block size each variant takes, each with several
+    sample groups, against the plain version; a shape it does not take
+    raises."""
     B, V = 7, 1000
     wT, A, v = _inputs(V, B, cuda)
     ref = LS.lbs_skinning_reference(wT, A, v)
-    shapes = {}
-    for _, cfg in LS._candidates(B, V, 24, LS._num_sms(cuda), True):
-        shapes.setdefault((cfg.threads, cfg.verts_per_thread,
-                           cfg.groups in (1, 3, B)), cfg)
-    assert {k[:2] for k in shapes} == {(t, n) for t in LS.THREADS
-                                       for n in LS.VERTS_PER_THREAD}
-    for cfg in shapes.values():
-        out = torch.full_like(v, float("nan"))
-        LS._launch(wT, A, v, out, cfg)
-        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0,
-                                   msg=lambda m: f"{cfg}: {m}")
+    for vpt, most in LS.THREADS.items():
+        for threads in range(32, most + 1, 32):
+            tiles = -(-V // (threads * vpt))
+            for groups in (1, 3, B):
+                cfg = LS.LaunchConfig(threads, vpt, tiles, groups)
+                out = torch.full_like(v, float("nan"))
+                LS._launch(wT, A, v, out, cfg)
+                torch.testing.assert_close(out, ref, atol=1e-5, rtol=0,
+                                           msg=lambda m: f"{cfg}: {m}")
+    for cfg in (LS.LaunchConfig(96, 4, 4, 1), LS.LaunchConfig(160, 1, 7, 1),
+                LS.LaunchConfig(64, 2, 8, 1), LS.LaunchConfig(64, 4, 4, 8)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            LS._launch(wT, A, v, torch.empty_like(v), cfg)
+
+
+def test_lbs_launch_rule_fits_one_wave(cuda):
+    """The launch rule assumes BLOCKS_PER_SM blocks of each variant fit an
+    SM at once; the card's occupancy query agrees."""
+    from tepose_tpu_torch.kernels import lbs_library
+
+    for J, vpt in ((24, 1), (24, 4), (17, 1)):
+        n = lbs_library().tepose_lbs_blocks_per_sm(J, vpt, LS.THREADS[vpt])
+        assert n >= LS.BLOCKS_PER_SM, (J, vpt, n)
 
 
 def test_rollout_on_cuda_matches_cpu(cuda):

@@ -152,32 +152,37 @@ def test_lbs_wrapper_rejects_bad_shapes_and_devices(rng):
 @pytest.mark.parametrize("V", [64, 300, 700, 6890])
 @pytest.mark.parametrize("B", [1, 2, 8, 32, 48, 160, 192, 256])
 def test_lbs_launch_config_covers_each_sample_vertex_once(B, V):
-    """The launch shape the wrapper picks (on a 132-SM card, for both
-    kernels) puts every (sample, vertex) in exactly one block, masks the
-    ragged last vertex tile and stays within the grid, thread and 227 KB
-    shared-memory limits."""
-    for tiles_ok in (True, False):
-        cfg = LS._launch_config(B, V, 24, 132, tiles_ok)
-        assert cfg.threads in LS.THREADS
-        assert cfg.verts_per_thread in (LS.VERTS_PER_THREAD if tiles_ok
-                                        else (1,))
-        assert cfg.threads % 32 == 0
-        assert LS.block_threads(cfg.threads, cfg.verts_per_thread) <= 1024
+    """The launch shape the wrapper picks (on a 132-SM card, for SMPL's 24
+    joints and for another count) puts every (sample, vertex) in exactly
+    one block, masks the ragged last vertex tile, and stays within one wave
+    of BLOCKS_PER_SM blocks an SM, the grid limits and the 48 KB of static
+    shared memory a block may have."""
+    for J in (24, 17):
+        cfg = LS._launch_config(B, V, J, 132)
+        assert cfg.verts_per_thread == (
+            4 if J == 24 and B >= LS.FOUR_VERTEX_MIN_BATCH else 1)
+        assert cfg.threads == LS.THREADS[cfg.verts_per_thread]
+        assert cfg.threads % 32 == 0 and cfg.threads <= 1024
         assert 1 <= cfg.groups <= min(B, LS.MAX_GRID_Y)
-        assert cfg.smem_bytes == LS.smem_bytes(24, cfg.threads,
-                                               cfg.verts_per_thread)
-        assert cfg.smem_bytes <= LS.SMEM_PER_BLOCK == 227 * 1024
+        assert (cfg.tiles * cfg.groups <= LS.BLOCKS_PER_SM * 132
+                or cfg.groups == 1)
+        assert LS.smem_bytes(J) <= 48 * 1024
         # the last tile is the only ragged one, and it is not empty
         assert (cfg.tiles - 1) * cfg.tile < V <= cfg.tiles * cfg.tile
         count = np.zeros((B, V), np.int32)
         for x in range(cfg.tiles):
             v0 = x * cfg.tile
-            nv = min(cfg.tile, V - v0)   # the kernel's mask
             for y in range(cfg.groups):
                 b0, b1 = LS.sample_range(y, B, cfg.groups)
                 assert b0 < b1
-                count[b0:b1, v0:v0 + nv] += 1
-        assert (count == 1).all(), (tiles_ok, cfg)
+                for t in range(cfg.threads):
+                    # the kernel's vertices of thread t, and its mask
+                    first = v0 + (t // 32) * 32 * cfg.verts_per_thread + t % 32
+                    verts = [first + 32 * q
+                             for q in range(cfg.verts_per_thread)]
+                    verts = [u for u in verts if u < V]
+                    count[b0:b1, verts] += 1
+        assert (count == 1).all(), (J, cfg)
 
 
 @pytest.fixture

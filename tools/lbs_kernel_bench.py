@@ -1,27 +1,29 @@
 #!/usr/bin/env python3
 """Measure the LBS skinning kernel on one CUDA card.
 
-  python tools/lbs_kernel_bench.py [--ptxas] [--sweep] [--baseline-cu PATH]
+  python tools/lbs_kernel_bench.py [--ptxas] [--shapes] [--baseline-cu PATH]
 
 Always: checks the kernel against its plain version at V = 6890 for every
 batch size in --batches (the main path's launch sizes) and prints its
-device time per launch, its bound and share of bound, the launch shape
-`_launch_config` chose, and the card's name and power limit.
+device time per launch at the launch shape `_launch_config` picks, its
+bound and share of bound, and the card's name and power limit.
 
-  --ptxas            print `nvcc -Xptxas -v` for csrc/lbs_skinning.cu (and
-                     the baseline): registers, shared memory and spills of
-                     each instantiation.
-  --sweep            for each batch size, time every launch shape the cost
-                     model ranks, beside its modelled cost: the data that
-                     `_launch_config`'s constants are fitted to.
+  --ptxas            print `nvcc -Xptxas -v` for csrc/lbs_skinning.cu:
+                     registers, shared memory and spills of each
+                     instantiation.
+  --shapes           for each batch size, time other launch shapes (each
+                     variant, block size and a few group counts) beside the
+                     one `_launch_config` picks: the check of its rule.
   --baseline-cu PATH build an earlier kernel source whose C entry is
-                     tepose_lbs_skin_f32(wT, A, v, out, B, V, J, stream) and
-                     time it in turns with the current kernel
-                     (baseline/current/current/baseline) in this process.
+                     tepose_lbs_skin_f32(wT, A, v, out, B, V, J, stream),
+                     for example the first port's, written by
+                       git show dac4449:tepose_tpu_torch/csrc/lbs_skinning.cu
+                     under build/, and time it in turns with the current
+                     kernel (baseline/current/current/baseline).
 
-Device times use chip_smoke.py's `device_ms` (a sleep kernel queued ahead
-of the timed launches). Each result is also appended as a JSON line to
---out (default build/lbs_kernel_bench.jsonl).
+Device times use tools/kernel_timing.py's `device_ms` (a sleep kernel
+queued ahead of the timed launches). Each result is also appended as a
+JSON line to --out (default build/lbs_kernel_bench.jsonl).
 """
 
 from __future__ import annotations
@@ -37,20 +39,19 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
+sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
 
-from chip_smoke import device_ms, lbs_bound, lbs_inputs  # noqa: E402
+from kernel_timing import device_ms, lbs_bound, lbs_inputs  # noqa: E402
 from tepose_tpu_torch import kernels  # noqa: E402
 from tepose_tpu_torch.ops import lbs_skinning as LS  # noqa: E402
 
 V = 6890
-OUT = os.path.join(REPO, "build", "lbs_kernel_bench.jsonl")
 
 
-def emit(record: dict) -> None:
+def emit(record: dict, out: str) -> None:
     line = json.dumps(record)
     print(line, flush=True)
-    with open(OUT, "a") as f:
+    with open(out, "a") as f:
         f.write(line + "\n")
 
 
@@ -63,8 +64,7 @@ def nvcc(source: str, out: str, *extra: str) -> subprocess.CompletedProcess:
 
 
 def baseline_launcher(path: str):
-    """Build `path` into a library and return fn(wT, A, v, out) -> out."""
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    """Build `path` into a library and return fn(wT, A, v, out)."""
     so = str(kernels.BUILD_DIR / "liblbs_baseline.so")
     nvcc(path, so)
     lib = ctypes.CDLL(so)
@@ -73,52 +73,61 @@ def baseline_launcher(path: str):
     lib.tepose_lbs_skin_f32.restype = i
 
     def launch(wT, A, v, out):
-        B, n, J = v.shape[0], wT.shape[1], wT.shape[0]
         err = lib.tepose_lbs_skin_f32(
             p(wT.data_ptr()), p(A.data_ptr()), p(v.data_ptr()),
-            p(out.data_ptr()), B, n, J,
+            p(out.data_ptr()), v.shape[0], wT.shape[1], wT.shape[0],
             p(torch.cuda.current_stream().cuda_stream))
         if err != 0:
             raise RuntimeError(f"baseline launch failed ({err})")
-        return out
 
     return launch
 
 
-def ptxas_report(sources: list[str]) -> None:
-    for src in sources:
-        proc = nvcc(src, str(kernels.BUILD_DIR / "ptxas_report.cubin"),
-                    "-Xptxas=-v", "-cubin")
-        emit({"ptxas": src, "report": proc.stderr.strip().splitlines()})
+def other_shapes(B: int, J: int, picked: LS.LaunchConfig):
+    """Launch shapes besides `picked`: each variant the joint count takes,
+    each block size it takes, and the group count that fills one wave with
+    three quarters, half and twice that."""
+    sms = LS._num_sms(torch.device("cuda"))
+    for vpt, most in LS.THREADS.items():
+        if vpt == 4 and J != 24:
+            continue
+        for threads in range(32, most + 1, 32):
+            tiles = -(-V // (threads * vpt))
+            wave = LS.BLOCKS_PER_SM * sms // tiles
+            for g in sorted({wave, 3 * wave // 4, wave // 2, 2 * wave}):
+                cfg = LS.LaunchConfig(threads, vpt, tiles, max(1, min(B, g)))
+                if cfg != picked:
+                    yield cfg
 
 
 def main() -> None:
-    global OUT
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--batches", default="1,8,32,48,160,192,256")
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--shapes", action="store_true")
     ap.add_argument("--baseline-cu")
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--out", default=str(kernels.BUILD_DIR.parent
+                                         / "lbs_kernel_bench.jsonl"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("lbs_kernel_bench: needs a CUDA card")
-    OUT = args.out
-    os.makedirs(os.path.dirname(os.path.abspath(OUT)), exist_ok=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    out_file = args.out
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     emit({"card": card, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda}, out_file)
     kernels.build_all()
     if args.ptxas:
-        ptxas_report([str(kernels.CSRC_DIR / "lbs_skinning.cu")]
-                     + ([args.baseline_cu] if args.baseline_cu else []))
+        proc = nvcc(str(kernels.CSRC_DIR / "lbs_skinning.cu"),
+                    str(kernels.BUILD_DIR / "ptxas_report.cubin"),
+                    "-Xptxas=-v", "-cubin")
+        emit({"ptxas": proc.stderr.strip().splitlines()}, out_file)
     baseline = baseline_launcher(args.baseline_cu) if args.baseline_cu \
         else None
 
     dev = torch.device("cuda")
-    sms = LS._num_sms(dev)
     rs = np.random.RandomState(0)
     for B in (int(b) for b in args.batches.split(",")):
         wT, A, v = lbs_inputs(rs, B, V, dev)
@@ -126,63 +135,61 @@ def main() -> None:
         ref = LS.lbs_skinning_reference(wT, A, v)
         bound_ms, bound_by = lbs_bound(B, V, J)
         out = torch.empty_like(v)
-        chosen = LS._launch_config(B, V, J, sms)
+        picked = LS._launch_config(B, V, J, LS._num_sms(dev))
 
-        def timed(cfg, reps=15):
+        def checked(launch, name):
             out.fill_(float("nan"))
-            LS._launch(wT, A, v, out, cfg)
+            launch()
             err = (out - ref).abs().max().item()
             if not err <= 1e-5:
-                raise RuntimeError(f"B={B} {cfg}: max abs err {err}")
-            return device_ms(lambda: LS._launch(wT, A, v, out, cfg),
-                             reps=reps), err
+                raise RuntimeError(f"B={B} {name}: max abs err {err}")
+            return err
 
+        def kernel(cfg=picked):
+            return lambda: LS._launch(wT, A, v, out, cfg)
+
+        err = checked(kernel(), picked)
+        t = {"current": []}
         if baseline is not None:
-            out.fill_(float("nan"))
-            err_old = (baseline(wT, A, v, out) - ref).abs().max().item()
-            if not err_old <= 1e-5:
-                raise RuntimeError(f"baseline B={B}: max abs err {err_old}")
-            t = {"baseline": [], "current": []}
+            old = lambda: baseline(wT, A, v, out)  # noqa: E731
+            checked(old, "baseline")
+            t["baseline"] = []
             for name in ("baseline", "current", "current", "baseline"):
-                if name == "current":
-                    t[name] += timed(chosen)[0]
-                else:
-                    t[name] += device_ms(lambda: baseline(wT, A, v, out))
-            new, old = (float(np.median(t[k])) for k in ("current",
-                                                         "baseline"))
-            emit({"B": B, "V": V, "device_ms": new, "baseline_ms": old,
-                  "turns_ms": {k: [float(np.median(x[:15])),
-                                   float(np.median(x[15:]))]
-                               for k, x in t.items()},
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "share_of_bound": bound_ms / new,
-                  "baseline_share_of_bound": bound_ms / old,
-                  "config": vars(chosen), "card": card})
+                t[name] += device_ms(old if name == "baseline" else kernel())
         else:
-            times, err = timed(chosen)
-            ms = float(np.median(times))
-            emit({"B": B, "V": V, "device_ms": ms, "max_abs_err": err,
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "share_of_bound": bound_ms / ms, "config": vars(chosen),
-                  "card": card})
+            t["current"] = device_ms(kernel())
+        ms = float(np.median(t["current"]))
+        rec = {"B": B, "V": V, "device_ms": ms, "max_abs_err": err,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "share_of_bound": bound_ms / ms, "config": vars(picked),
+               "card": card}
+        if baseline is not None:
+            old_ms = float(np.median(t["baseline"]))
+            rec.update(baseline_ms=old_ms,
+                       baseline_share_of_bound=bound_ms / old_ms,
+                       turns_ms={k: [float(np.median(x[:len(x) // 2])),
+                                     float(np.median(x[len(x) // 2:]))]
+                                 for k, x in t.items()})
+        emit(rec, out_file)
 
-        if args.sweep:
-            sweep(B, J, sms, chosen, timed, card)
-
-
-def sweep(B, J, sms, chosen, timed, card) -> None:
-    """Time every launch shape `_candidates` yields, beside the model's
-    cost."""
-    best = None
-    for key, cfg in LS._candidates(B, V, J, sms, True):
-        ms = float(np.median(timed(cfg, reps=5)[0]))
-        best = min(best or (ms, cfg), (ms, cfg), key=lambda x: x[0])
-        emit({"sweep_B": B, "threads": cfg.threads,
-              "verts_per_thread": cfg.verts_per_thread, "tiles": cfg.tiles,
-              "groups": cfg.groups, "model_cost": key[0], "device_ms": ms,
-              "chosen": cfg == chosen, "card": card})
-    emit({"sweep_B": B, "best_ms": best[0], "best": vars(best[1]),
-          "chosen": vars(chosen), "card": card})
+        if args.shapes:
+            times = [(ms, picked)]
+            for cfg in other_shapes(B, J, picked):
+                checked(kernel(cfg), cfg)
+                times.append((float(np.median(device_ms(kernel(cfg),
+                                                        reps=7))), cfg))
+            # the best few again, in turns with the picked shape
+            best = sorted(times, key=lambda x: x[0])[:3]
+            again = {c: [] for _, c in best} | {picked: []}
+            for _ in range(2):
+                for c in again:
+                    again[c] += device_ms(kernel(c), reps=7)
+            emit({"shapes_B": B, "picked": vars(picked),
+                  "picked_ms": float(np.median(again[picked])),
+                  "best_again": [(float(np.median(x)), vars(c))
+                                 for c, x in again.items()],
+                  "all": [(m, vars(c)) for m, c in times], "card": card},
+                 out_file)
 
 
 if __name__ == "__main__":
