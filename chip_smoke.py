@@ -42,7 +42,32 @@ Phases, each of which raises on failure (no phase's error is caught):
      `parity` and `serving` presets), ResNet-50 crops/s (crop_batch 16
      and 128, float32 and bfloat16), `fast_stream_scan` ms/window against
      the plain-encoder window loop (B = 32, T = 128) and `LiveSession.push`
-     p50/p99 latency (1 and 32 streams, the first push excluded).
+     p50/p99 latency (1 and 32 streams, the first push excluded);
+  8. training at the full width of configs/repr_wopw_3dpw_model.yaml
+     (batch 32 = 19 2D + 13 3D rows, seqlen 6, 2 x 1024 GRUs through the
+     fast encoder, GCN discriminator at 13 / 6 scales, both Adam
+     optimizers, synthetic SMPL with 6890 vertices, strict float32):
+     (a) the JAX training golden (tests/golden/torch_port_train_f32.npz,
+     from tools/make_torch_train_golden.py), segments of K = 1 and K = 3
+     windows with dropout off: mean losses within 1e-4 (K = 1) and 1e-3
+     (K = 3) relative, window 1's sum ||g||^2 within 1e-3, BN running
+     statistics within 1e-4 (K = 1) and 1e-3 (K = 3) of each array's
+     magnitude (after an update: JAX and the port round the
+     discriminator's float32 gradient differently and Adam steps a few
+     elements opposite ways, by up to 2 lr), leaves within 2 K lr and
+     their RMS deviation within 0.05 lr, both Adam optimizers' step
+     counts (torch's per-parameter state) equal to optax's; then the K = 3
+     segment against the same segment on the host's CPU, losses and BN
+     statistics within 1e-4; the training step launches no skinning; (b) `tepose_tpu_torch.train.run.run_train
+     (--synthetic)`: one epoch of one segment of 20 windows, then
+     validation, with the LBS count zeroed before and required > 0 after
+     (every launch is validation's), finite losses and metrics, and a
+     fresh loop resumed from the checkpoint with bit-equal parameters and
+     optimizer state; (c) timings on the resumed loop: train ms per
+     window and samples x windows / s (host clock ending in the metrics
+     readback, median over 4 segments), peak device memory over them,
+     device idle share and kernels per window from one profiled segment,
+     and validation ms per window (one batch of 8 videos).
 
 Before the last line it prints one JSON line with the kernels' routes,
 launches per path, errors and times; the last line is the ok/device JSON
@@ -425,6 +450,151 @@ def phase7_timings(p5: dict, card: str) -> dict:
     return res
 
 
+TRAIN_WINDOWS, TRAIN_TIMED_SEGMENTS = 20, 4
+
+
+def phase8_train(card: str) -> dict:
+    import make_torch_train_golden as tg
+    from kernel_timing import profile_device
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from tepose_tpu_torch.config import update_cfg
+    from tepose_tpu_torch.train.optim import opt_state_leaves
+    from tepose_tpu_torch.train.run import (
+        build_train_loop, close_loaders, run_train)
+    from tepose_tpu_torch.train.trainer import train_segment
+
+    # (a) the JAX golden
+    golden = tg.load_golden()
+    spec = golden["spec"]
+    for K in spec["windows"]:
+        setup = tg.port_setup(spec, "cuda")
+        sums = tg.weight_checksums(setup)
+        if not np.allclose(sums, golden["weight_checksums"], rtol=1e-9,
+                           atol=0):
+            raise RuntimeError(
+                f"weights rebuilt from the training golden's seeds differ "
+                f"from the golden's ({sums} vs {golden['weight_checksums']})")
+        lbs.LAUNCHES = 0
+        out = tg.port_segment(setup, K)
+        torch.cuda.synchronize()
+        if lbs.LAUNCHES:
+            raise RuntimeError(f"the training step skinned the mesh "
+                               f"({lbs.LAUNCHES} LBS launches)")
+        dev = tg.golden_deviation(golden, out, K)
+        print(f"phase 8a: training golden K={K} (batch {spec['n_2d']}+"
+              f"{spec['n_3d']}, {spec['n_layers']}x{spec['hidden_size']} "
+              f"GRUs, GCN {spec['num_gcn_scales']}/{spec['num_g3d_scales']}, "
+              f"V={spec['num_verts']}) on cuda; deviation / bar: "
+              + ", ".join(f"{k} {d:.3e} / {bar:.1e}"
+                          for k, (d, bar) in dev.items())
+              + f"; Adam steps gen {out['adam_steps']['gen']} disc "
+              f"{out['adam_steps']['disc']}; gen_loss "
+              f"{out['losses']['gen_loss']:.6f}")
+        bad = {k: v for k, v in dev.items() if not v[0] <= v[1]}
+        if bad:
+            raise RuntimeError(f"training misses the golden at K={K}: {bad}")
+    # the last segment against the same segment on the host's CPU
+    host = tg.port_segment(tg.port_setup(spec, "cpu"), K)
+    dev = tg.pair_deviation(out, host)
+    print(f"phase 8a: K={K} segment on cuda against the same on the cpu; "
+          "deviation / bar: " + ", ".join(f"{k} {d:.3e} / {bar:.1e}"
+                                          for k, (d, bar) in dev.items()))
+    bad = {k: v for k, v in dev.items() if not v[0] <= v[1]}
+    if bad:
+        raise RuntimeError(f"training on cuda misses the cpu at K={K}: {bad}")
+
+    # (b) the entry point, one epoch
+    cfg = update_cfg(os.path.join(REPO, "configs",
+                                  "repr_wopw_3dpw_model.yaml"))
+    cfg.OUTPUT_DIR = os.path.join(REPO, "build", "chip_smoke_train")
+    cfg.TRAIN.END_EPOCH = 1
+    kw = dict(synthetic=True, smoke_iters=TRAIN_WINDOWS, device="cuda")
+    lbs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    loop = run_train(cfg, **kw)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = lbs.LAUNCHES
+    lines = [json.loads(x) for x in
+             open(os.path.join(loop.logdir, "metrics.jsonl"))]
+    values = {d["tag"]: d["value"] for d in lines}
+    if not all(np.isfinite(v) for v in values.values()):
+        raise RuntimeError(f"non-finite training metrics: {values}")
+    if launches <= 0:
+        raise RuntimeError("training validation never launched the lbs "
+                           "kernel")
+    print(f"phase 8b: run_train --synthetic on cuda, 1 epoch of 1 segment x "
+          f"{TRAIN_WINDOWS} windows then validation ({len(loop.valid)} "
+          f"batches), {run_s:.1f} s; lbs launches {launches}; gen_loss "
+          f"{values['train_loss/gen_loss']:.4f}, dis_loss "
+          f"{values['train_loss/dis_loss']:.4f}, pa-mpjpe "
+          f"{values['error/pa-mpjpe']:.2f} mm")
+    cfg2 = cfg.clone()
+    cfg2.TRAIN.RESUME = os.path.join(loop.logdir, "checkpoint.npz")
+    fresh, _ = build_train_loop(cfg2, **kw)
+    for a, b in ((loop.gen, fresh.gen), (loop.disc, fresh.disc)):
+        sa, sb = a.state_dict(), b.state_dict()
+        if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k])
+                                             for k in sa):
+            raise RuntimeError("the resumed loop's weights differ")
+    for a, b in ((loop.gen_opt, fresh.gen_opt),
+                 (loop.disc_opt, fresh.disc_opt)):
+        if not all(np.array_equal(x, y) for x, y in
+                   zip(opt_state_leaves(a), opt_state_leaves(b))):
+            raise RuntimeError("the resumed loop's optimizer state differs")
+    print(f"phase 8b: checkpoint resumed into a fresh loop (epoch "
+          f"{fresh.start_epoch}): parameters, buffers and optimizer state "
+          f"bit-equal")
+
+    # (c) timings, on the resumed loop
+    loop = fresh
+    hp, B = loop.hp, loop.hp.n_2d + loop.hp.n_3d
+    torch.cuda.reset_peak_memory_stats()
+    loop.train_epoch(1, TRAIN_TIMED_SEGMENTS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = float(np.median(loop.segment_seconds))
+    it2, it3, itd = (iter(x) for x in (loop.train_2d, loop.train_3d,
+                                       loop.disc_loader))
+    b2, b3 = next(it2), next(it3)
+    amass = loop._amass_windows(itd, TRAIN_WINDOWS, B)
+    prof = profile_device(lambda: train_segment(
+        loop.gen, loop.disc, loop.smpl, loop.gen_opt, loop.disc_opt, hp,
+        loop.weights, b2, b3, amass, loop.generator))
+    loop.max_valid_batches = 1
+    lbs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    loop.validate()
+    val_s = time.perf_counter() - t0
+    val_windows = lbs.LAUNCHES // 2
+    close_loaders(loop)
+    res = {"card": card, "train_ms_per_window": 1e3 * med / TRAIN_WINDOWS,
+           "samples_windows_per_s": B * TRAIN_WINDOWS / med,
+           "segment_s": loop.segment_seconds, "peak_memory_gb": peak_gb,
+           "validation_ms_per_window": 1e3 * val_s / max(val_windows, 1),
+           "validation_launches": launches}
+    if prof is None:
+        res.update(idle_share="not measured", kernels_per_window=
+                   "not measured")
+    else:
+        res.update(idle_share=prof["idle_share"],
+                   kernels_per_window=prof["kernels"] / TRAIN_WINDOWS,
+                   profiled_span_ms=prof["span_ms"],
+                   profiled_busy_ms=prof["busy_ms"],
+                   top_kernels_ms=prof["top_kernels_ms"],
+                   top_host_ops_ms=prof["top_host_ops_ms"])
+    print(f"phase 8c: training at batch {B} (strict fp32): "
+          f"{res['train_ms_per_window']:.2f} ms/window, "
+          f"{res['samples_windows_per_s']:.1f} samples x windows/s (median "
+          f"of {[round(x, 4) for x in loop.segment_seconds]} s per "
+          f"{TRAIN_WINDOWS}-window segment); idle share "
+          f"{res['idle_share']}, kernels/window {res['kernels_per_window']}"
+          f"; peak memory {peak_gb:.2f} GB; validation "
+          f"{res['validation_ms_per_window']:.3f} ms/window ({val_windows} "
+          f"windows at B=8, one batch) [{card}]")
+    print(json.dumps({"train_timings": res}))
+    return {"launches": launches}
+
+
 def main() -> None:
     card = phase0_device()
     sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
@@ -435,10 +605,11 @@ def main() -> None:
     p5 = phase5_engine()
     p6 = phase6_live(p5)
     phase7_timings(p5, card)
+    p8 = phase8_train(card)
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
     by_path = {"eval": sl["launches"], "engine": p5["launches"],
-               "live": p6["launches"]}
+               "live": p6["launches"], "train_validation": p8["launches"]}
     print(json.dumps({"kernels": [{
         "name": "lbs_skinning", "route": "cuda",
         "source": "tepose_tpu_torch/csrc/lbs_skinning.cu",

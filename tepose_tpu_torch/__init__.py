@@ -10,9 +10,12 @@ Ported so far: the theta-feedback eval rollout behind
 `python -m tepose_tpu_torch.evaluate`, and the serving path on the device:
 the ResNet-50 backbone, the lane-batched fast encoder and window scan, the
 offline `streaming.engine.StreamingEngine` and the frame-at-a-time
-`streaming.live.LiveSession`. Every SMPL forward skins through the LBS
-kernel, CUDA C++ written for sm_90a (`csrc/lbs_skinning.cu`, built by
-`kernels.py`).
+`streaming.live.LiveSession`, and the training path behind
+`python -m tepose_tpu_torch.train` (the GCN motion discriminator, the
+masked LSGAN loss, the theta-feedback trainer, validation and checkpoints).
+Every SMPL forward that builds the mesh skins through the LBS kernel, CUDA
+C++ written for sm_90a (`csrc/lbs_skinning.cu`, built by `kernels.py`);
+the train step reads the vertex-free joints instead.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,10 @@
-"""Eval-DB access: joblib `.pt` dictionaries + pseudo-theta files.
+"""DB access: joblib `.pt` dictionaries + pseudo-theta files.
 
-A copy of the eval-DB readers of `tepose_tpu/data/db.py` (`eval_db_paths`,
-`load_db`, `load_pseudotheta`, `key_eval_db_by_video`), pinned equal to them
-by tests/test_torch_eval.py; the training-DB paths come with the training
-slice. The DBs are plain joblib pickles of numpy arrays; joblib is imported
-only to read one, so synthetic runs do not need it.
+A copy of `tepose_tpu/data/db.py` (`train_db_paths`, `eval_db_paths`,
+`load_db`, `load_pseudotheta`, `key_eval_db_by_video`), pinned equal to it
+by tests/test_torch_eval.py and tests/test_torch_train_loop.py. The DBs
+are plain joblib pickles of numpy arrays; joblib is imported only to read
+one, so synthetic runs do not need it.
 """
 
 from __future__ import annotations
@@ -15,6 +15,44 @@ from typing import Dict, Optional
 import numpy as np
 
 from tepose_tpu_torch.config import TePose_DB_DIR
+
+
+def train_db_paths(load_opt: str, dataset_name: str, split: str = "train",
+                   db_dir: Optional[str] = None):
+    """(db_file, pseudotheta_file) per config TITLE x dataset.
+
+    ref: dataset_3d.py:93-153, dataset_2d.py:56-73 — the per-experiment DB
+    variant matrix (occlusion-augmented, scale, tight-bbox variants).
+    """
+    d = db_dir or TePose_DB_DIR
+    name = f"{dataset_name}_{split}"
+    variant = ""
+    if split == "train":
+        table = {
+            "repr_wpw_3dpw_model": {
+                "3dpw": "_occ", "mpii3d": "_scale12_occ", "h36m": "_25fps_occ",
+                "posetrack": "_occ"},
+            "repr_wpw_h36m_mpii3d_model": {
+                "3dpw": "", "mpii3d": "_scale12", "h36m": "_25fps",
+                "posetrack": ""},
+            "repr_wopw_3dpw_model": {
+                "mpii3d": "_scale12_new_occ", "h36m": "_25fps_occ",
+                "posetrack": "_occ"},
+            "repr_wopw_h36m_model": {
+                "mpii3d": "_scale1", "h36m": "_25fps_tight", "posetrack": ""},
+            "repr_wopw_mpii3d_model": {
+                "mpii3d": "_scale12", "h36m": "_25fps", "posetrack": ""},
+        }
+        variant = table.get(load_opt, {}).get(dataset_name, "")
+    elif split == "val":
+        if dataset_name == "mpii3d":
+            variant = "_scale12"
+        elif dataset_name == "h36m" and load_opt == "repr_wopw_h36m_model":
+            name = f"{dataset_name}_test"
+            variant = "_front_25fps_tight"
+    db_file = osp.join(d, f"{name}{variant}_db.pt")
+    pse_file = osp.join(d, f"{name}{variant}_pseudotheta.pt")
+    return db_file, pse_file
 
 
 def eval_db_paths(dataset: str, title: str, render: bool = False,

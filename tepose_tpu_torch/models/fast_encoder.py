@@ -22,8 +22,10 @@ order, so its output at flipped position tau is step S-1-tau of that scan.
 
 The pack is a snapshot: `pack_fast_encoder` stacks copies of the encoder's
 weights once, where the JAX code re-packs inside every traced call. A later
-`load_state_dict` or `.to()` on the encoder does not reach an existing pack;
-pack again after either.
+`load_state_dict`, `.to()` or optimizer step on the encoder does not reach
+an existing pack; pack again after any of them. Training packs inside
+autograd on every forward (`stack_fast_encoder`), so gradients flow back to
+the encoder's own parameters.
 """
 
 from __future__ import annotations
@@ -50,7 +52,14 @@ def _cell_batched(xp: torch.Tensor, h: torch.Tensor, w_hh: torch.Tensor,
 
 @torch.no_grad()
 def pack_fast_encoder(encoder: TemporalEncoder) -> Dict:
-    """Lane-stacked copies of a `TemporalEncoder`'s weights.
+    """Lane-stacked copies of a `TemporalEncoder`'s weights, outside
+    autograd: the eval and serving snapshot (`stack_fast_encoder`)."""
+    return stack_fast_encoder(encoder)
+
+
+def stack_fast_encoder(encoder: TemporalEncoder) -> Dict:
+    """Lane-stacked copies of a `TemporalEncoder`'s weights; differentiable
+    when grad is on.
 
     Layer 0: w_feat (3, 3H, 2048) and w_theta (3, 3H, 85), the split of the
     stacked W_ih, as flat (9H, F) matrices for one GEMM each; later layers:

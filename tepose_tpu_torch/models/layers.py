@@ -1,6 +1,7 @@
 """Linear and GRU layers with the JAX package's initialisations.
 
-Port of `tepose_tpu/models/layers.py`. The layers are `nn.Linear` and
+Port of `tepose_tpu/models/layers.py`, dropout included. The layers are
+`nn.Linear` and
 `nn.GRU`, whose parameter names (`weight`, `bias`, `weight_ih_l{k}`,
 `bias_hh_l{k}_reverse`, ...), layouts ((out, in); (3H, in)) and GRU gate
 order (r, z, n) are the ones the JAX param trees use, so converted trees
@@ -41,6 +42,18 @@ def make_linear(in_dim: int, out_dim: int, *, generator: torch.Generator,
     _uniform_(lin.weight, -limit, limit, generator)
     _uniform_(lin.bias, -bound, bound, generator)
     return lin
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout drawn from `generator` (on x's device): each element
+    kept with probability 1 - p and scaled by 1 / (1 - p), as
+    `tepose_tpu/models/layers.py::dropout`. With no generator it is off,
+    the contract of the JAX regressor's `rng=None`."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def gru_update(x_proj: torch.Tensor, h_proj: torch.Tensor,

@@ -3,7 +3,8 @@ linear blend skinning.
 
 Port of `tepose_tpu/models/smpl.py` (constants, `SmplModel`,
 `load_smpl_assets`, `synthetic_smpl_model`, `_rigid_transform`,
-`smpl_forward`, `regress_h36m_joints`). Step 5 of the forward, the skinning,
+`smpl_forward`, `joint_reduction_tensors`, `smpl_joints_reduced`,
+`regress_h36m_joints`). Step 5 of the forward, the skinning,
 goes through `ops.lbs_skinning.lbs_skinning`: the CUDA kernel on a CUDA
 device, its plain einsum on the CPU.
 
@@ -280,6 +281,72 @@ def smpl_forward(model: SmplModel, betas: torch.Tensor, pose: torch.Tensor,
         "joints49": joints54[:, model._joint_map_idx],
         "joints24": posed_joints,
     }
+
+
+def joint_reduction_tensors(model: SmplModel):
+    """The 49-joint output's dependence on the mesh folded into small
+    tensors (`tepose_tpu/models/smpl.py::joint_reduction_tensors`).
+
+    The 30 non-skeleton joints are linear in the posed vertices (21 vertex
+    picks, 9 rows of `j_regressor_extra`); folding that (30, V) selection
+    through the skinning weights gives per-(joint, bone) blended rest points
+    linear in betas and in the pose feature. Returns (A0 (30, 24, 3),
+    AS (30, 24, 3, 10), AP (30, 24, 3, 207), W1 (30, 24)).
+    """
+    V = model.num_verts
+    sel = torch.zeros((21, V), dtype=model.v_template.dtype,
+                      device=model.v_template.device)
+    sel[torch.arange(21, device=sel.device), model._vertex_joint_idx] = 1.0
+    w_sel = torch.cat([sel, model.j_regressor_extra], dim=0)     # (30, V)
+    WW = torch.einsum("jv,vk->jvk", w_sel, model.lbs_weights)    # (30, V, 24)
+    A0 = torch.einsum("jvk,vc->jkc", WW, model.v_template)
+    AS = torch.einsum("jvk,vcl->jkcl", WW, model.shapedirs)
+    pd = model.posedirs.reshape(model.posedirs.shape[0], V, 3)
+    AP = torch.einsum("jvk,pvc->jkcp", WW, pd)
+    return A0, AS, AP, WW.sum(dim=1)
+
+
+def _reduced(model: SmplModel):
+    """`joint_reduction_tensors` plus the rest-joint regressions, computed
+    once per model as non-persistent buffers (they follow `.to()`), outside
+    autograd and inference mode so any later caller may use them."""
+    if not hasattr(model, "_red_AP"):
+        with torch.inference_mode(False), torch.no_grad():
+            A0, AS, AP, W1 = joint_reduction_tensors(model)
+            J0 = torch.einsum("jv,vk->jk", model.j_regressor,
+                              model.v_template)
+            JS = torch.einsum("jv,vkl->jkl", model.j_regressor,
+                              model.shapedirs)
+        for name, t in (("A0", A0), ("AS", AS), ("AP", AP), ("W1", W1),
+                        ("J0", J0), ("JS", JS)):
+            model.register_buffer(f"_red_{name}", t, persistent=False)
+    return (model._red_A0, model._red_AS, model._red_AP, model._red_W1,
+            model._red_J0, model._red_JS)
+
+
+def smpl_joints_reduced(model: SmplModel, betas: torch.Tensor,
+                        rot_mats: torch.Tensor) -> torch.Tensor:
+    """The 49-joint output without the mesh
+    (`tepose_tpu/models/smpl.py::smpl_joints_reduced`): the LBS algebra
+    reordered through `joint_reduction_tensors`, equal to
+    `smpl_forward(...)["joints49"]` within float reassociation. The train
+    step takes it, so neither its forward nor its backward skins.
+    betas (B, 10); rot_mats (B, 24, 3, 3). Returns (B, 49, 3)."""
+    B = betas.shape[0]
+    A0, AS, AP, W1, J0, JS = _reduced(model)
+    joints_rest = J0 + torch.einsum("bl,jkl->bjk", betas, JS)
+    posed_joints, rel_tf = _rigid_transform(rot_mats, joints_rest,
+                                            model.parents, model._parent_idx)
+    ident = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
+    pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1)       # (B, 207)
+    # blended rest points per (selected joint, bone): linear in betas and
+    # in the pose feature
+    p_sel = (A0 + torch.einsum("bl,jkcl->bjkc", betas, AS)
+             + torch.einsum("bp,jkcp->bjkc", pose_feature, AP))   # (B,30,24,3)
+    joints_sel = (torch.einsum("bkic,bjkc->bji", rel_tf[..., :3, :3], p_sel)
+                  + torch.einsum("jk,bki->bji", W1, rel_tf[..., :3, 3]))
+    joints54 = torch.cat([posed_joints, joints_sel], dim=1)
+    return joints54[:, model._joint_map_idx]
 
 
 def regress_h36m_joints(verts: torch.Tensor, j_regressor_h36m: torch.Tensor,

@@ -1,8 +1,9 @@
-"""TePose and the bootstrap VIBE as nn.Modules, eval mode.
+"""TePose and the bootstrap VIBE as nn.Modules.
 
-Port of `tepose_tpu/models/tepose.py` (`TePoseConfig`, `tepose_apply`,
-`VibeConfig`, `vibe_apply`). The modules' `state_dict` keys are the JAX
-param-tree paths joined with "." (`encoder.gru_fwd.weight_ih_l0`,
+Port of `tepose_tpu/models/tepose.py` (`TePoseConfig`, `tepose_apply` in
+eval and train mode, `VibeConfig`, `vibe_apply`). The modules'
+`state_dict` keys are the JAX param-tree paths joined with "."
+(`encoder.gru_fwd.weight_ih_l0`,
 `regressor.init_pose`, ...), so `weights.state_dict_from_jax_tree` output
 loads with `strict=True`. `TePoseConfig.fast_encoder` routes the forward
 through the lane-batched `models.fast_encoder`, which computes the same.
@@ -17,7 +18,8 @@ import torch
 from torch import nn
 
 from tepose_tpu_torch.models.fast_encoder import (
-    FEAT_DIM, fast_encoder_window, pack_fast_encoder, project_frame_features)
+    FEAT_DIM, fast_encoder_window, pack_fast_encoder, project_frame_features,
+    stack_fast_encoder)
 from tepose_tpu_torch.models.regressor import Regressor
 from tepose_tpu_torch.models.smpl import SmplModel
 from tepose_tpu_torch.models.temporal import TemporalEncoder, VibeEncoder
@@ -51,7 +53,11 @@ class VibeConfig:
 
 class TePose(nn.Module):
     """Causal sliding-window model: (B, T, 2048 + 85) -> predictions for the
-    window's last frame."""
+    window's last frame.
+
+    The fast encoder's eval pack is cached (`fast_pack`); a trainer calls
+    `drop_fast_pack` after every optimizer step, or evaluation would read
+    the weights of before the step. The train forward packs afresh."""
 
     def __init__(self, cfg: TePoseConfig, *, generator: torch.Generator,
                  device: torch.device | str):
@@ -70,19 +76,35 @@ class TePose(nn.Module):
             self._fast = pack_fast_encoder(self.encoder)
         return self._fast
 
+    def drop_fast_pack(self) -> None:
+        """Forget the cached eval pack; the next eval forward packs the
+        encoder's current weights."""
+        self._fast = None
+
     def forward(self, x: torch.Tensor, smpl: SmplModel, *,
-                j_regressor: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                j_regressor: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                compute_verts: bool = True) -> Dict[str, torch.Tensor]:
         """x (B, T, 2133) -> theta (B, 85), verts (B, V, 3), kp_2d, kp_3d,
-        rotmat."""
+        rotmat. `train` returns both encoder branches, each (B, 2, ...),
+        [fwd, rec], with dropout from `generator` (none: off);
+        `compute_verts=False` drops "verts" (the vertex-free joints)."""
         if self.cfg.fast_encoder:
-            fast = self.fast_pack()
+            fast = stack_fast_encoder(self.encoder) if train \
+                else self.fast_pack()
             feature = fast_encoder_window(
                 fast, project_frame_features(fast, x[..., :FEAT_DIM]),
-                x[..., FEAT_DIM:])
+                x[..., FEAT_DIM:], train=train)
         else:
-            feature = self.encoder(x)
-        return self.regressor(feature, smpl, j_regressor=j_regressor)
+            feature = self.encoder(x, train=train)
+        out = self.regressor(feature.reshape(-1, feature.shape[-1]), smpl,
+                             j_regressor=j_regressor, train=train,
+                             generator=generator, compute_verts=compute_verts)
+        if train:
+            B = x.shape[0]
+            out = {k: v.reshape((B, 2) + v.shape[1:]) for k, v in out.items()}
+        return out
 
 
 class Vibe(nn.Module):

@@ -1,8 +1,10 @@
-"""Per-stage wall timing for the serving pipeline.
+"""Per-stage wall timing for the serving pipeline, and the training loop's
+non-finite-loss guard.
 
-`StageTimer` is a copy of `tepose_tpu/utils/profiling.py::StageTimer` (a
-host-only class; importing the original would import JAX), pinned equal to
-it by tests/test_torch_serve.py.
+`StageTimer` and `NaNGuard` are copies of their namesakes in
+`tepose_tpu/utils/profiling.py` (host-only classes; importing the original
+would import JAX), pinned equal to them by tests/test_torch_serve.py and
+tests/test_torch_train_loop.py.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 
 class StageTimer:
@@ -39,3 +41,34 @@ class StageTimer:
         return " | ".join(
             f"{k}: {v['total_s']:.2f}s ({v['mean_ms']:.1f}ms x {v['count']})"
             for k, v in sorted(self.summary().items()))
+
+
+class NaNGuard:
+    """Detects persistent non-finite losses and recommends rollback.
+
+    The reference only prints on NaN (trainer.py:285-287); this tracks a
+    consecutive-failure budget so the host loop can stop and restore the
+    last good checkpoint.
+    """
+
+    def __init__(self, patience: int = 3):
+        self.patience = patience
+        self.consecutive = 0
+        self.total = 0
+        self.last_good_step: Optional[int] = None
+
+    def check(self, loss: float, step: int) -> bool:
+        """Returns True while training may continue."""
+        import math
+
+        if math.isfinite(loss):
+            self.consecutive = 0
+            self.last_good_step = step
+            return True
+        self.consecutive += 1
+        self.total += 1
+        return self.consecutive < self.patience
+
+    @property
+    def should_rollback(self) -> bool:
+        return self.consecutive >= self.patience

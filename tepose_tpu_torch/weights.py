@@ -2,9 +2,11 @@
 
 Port of the numpy parts of `tepose_tpu/train/checkpoint.py`:
 `flatten_tree`, `unflatten_tree` and `load_checkpoint` read the JAX
-package's `.npz` + `.json` checkpoints. A JAX param tree's paths joined with
-"." are the port modules' `state_dict` keys (the same renaming as
-`export_torch_generator`), so conversion is renaming only.
+package's `.npz` + `.json` checkpoints (`train.checkpoint` writes them). A
+JAX param tree's paths joined with "." are the port modules' `state_dict`
+keys (the same renaming as `export_torch_generator`), so conversion is
+renaming only; the discriminator's params and state trees together make the
+`MotionDiscriminator` state_dict.
 """
 
 from __future__ import annotations
@@ -83,3 +85,27 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Any:
     """Inverse of `state_dict_from_jax_tree`: numpy param tree for JAX."""
     return unflatten_tree({k.replace(".", SEP): v.detach().cpu().numpy()
                            for k, v in state_dict.items()})
+
+
+# Leaves of the JAX discriminator's `state` tree; every other leaf is a param.
+DISC_STATE_LEAVES = ("running_mean", "running_var", "A_powers", "A_scales")
+
+
+def disc_state_dict_from_jax(params: Any, state: Any
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX discriminator's `(params, state)` trees
+    (`motion_discriminator_init`) -> a float32 state_dict for
+    `models.gcn.MotionDiscriminator`: the two trees' paths are disjoint and
+    together are its keys."""
+    out = state_dict_from_jax_tree(params)
+    out.update(state_dict_from_jax_tree(state))
+    return out
+
+
+def disc_jax_trees_from_state_dict(state_dict: Mapping[str, torch.Tensor]):
+    """Inverse of `disc_state_dict_from_jax`: numpy `(params, state)`."""
+    params, state = {}, {}
+    for k, v in state_dict.items():
+        dst = state if k.rsplit(".", 1)[-1] in DISC_STATE_LEAVES else params
+        dst[k] = v
+    return jax_tree_from_state_dict(params), jax_tree_from_state_dict(state)

@@ -1,6 +1,7 @@
 """CUDA-only tests of the port: the LBS skinning kernel against its plain
-version, its input checks and launch shapes, and the eval rollout, the serving engine and
-the live session on the card against the CPU.
+version, its input checks and launch shapes, and the eval rollout, the
+serving engine, the live session, a training window and trainer validation
+on the card against the CPU.
 
 They skip where no CUDA device is visible. This file imports no JAX, so on a
 GPU host without JAX it runs without the suite's conftest:
@@ -241,3 +242,81 @@ def test_serving_modules_stay_on_cuda(cuda):
     setup["backbone"] = setup["backbone"].cpu()
     with pytest.raises(ValueError, match="serving path runs on"):
         sg.port_engine(setup)
+
+
+TRAIN_SPEC = dict(seqlen=6, n_layers=1, hidden_size=16, num_verts=700,
+                  n_2d=3, n_3d=4, vidlen=10, num_gcn_scales=2,
+                  num_g3d_scales=2, gen_lr=5e-5, gen_wd=0.0, disc_lr=1e-4,
+                  disc_wd=1e-4, disc_update_steps=1, smpl_seed=0,
+                  gen_seed=0, disc_seed=1, data_seed=11, windows=(1, 3))
+
+
+def test_train_window_on_cuda_matches_cpu(cuda):
+    """One small-width training window on the card against the same window
+    on the CPU, dropout off: losses rtol 1e-4, window 1's sum ||g||^2 rtol
+    1e-3, BN statistics 1e-4 of each array's magnitude, parameters within
+    2 lr; the step skins nothing."""
+    import make_torch_train_golden as tg
+
+    want = tg.port_segment(tg.port_setup(TRAIN_SPEC, "cpu"), 1)
+    before = LS.LAUNCHES
+    got = tg.port_segment(tg.port_setup(TRAIN_SPEC, cuda), 1)
+    assert LS.LAUNCHES == before
+    for k, v in want["losses"].items():
+        np.testing.assert_allclose(got["losses"][k], v, rtol=1e-4, err_msg=k)
+    for k, (d, bar) in tg.pair_deviation(got, want).items():
+        assert d <= bar, (k, d, bar)
+    assert got["adam_steps"] == want["adam_steps"] == {"gen": [1],
+                                                       "disc": [1]}
+    np.testing.assert_allclose(got["grad_sq"], want["grad_sq"], rtol=1e-3)
+    for k, v in want["disc_state"].items():
+        np.testing.assert_allclose(got["disc_state"][k], v, rtol=0,
+                                   atol=1e-4 * max(np.abs(v).max(), 1e-6),
+                                   err_msg=k)
+    for group, lr in (("gen", TRAIN_SPEC["gen_lr"]),
+                      ("disc", TRAIN_SPEC["disc_lr"])):
+        for k, v in want[group].items():
+            np.testing.assert_allclose(got[group][k], v, rtol=0,
+                                       atol=2 * lr, err_msg=k)
+
+
+def test_lbs_refuses_grad_on_the_training_path(cuda):
+    """The skinning kernel is forward only: an SMPL forward whose inputs
+    need a gradient raises while grad is on (the train step takes the
+    vertex-free joints instead); under no_grad it launches."""
+    from tepose_tpu_torch.models.smpl import smpl_forward
+
+    smpl = synthetic_smpl_model(0, 700, device=cuda)
+    betas = torch.zeros(2, 10, device=cuda, requires_grad=True)
+    pose = torch.zeros(2, 72, device=cuda)
+    with pytest.raises(RuntimeError, match="forward only"):
+        smpl_forward(smpl, betas, pose, pose2rot=True)
+    before = LS.LAUNCHES
+    with torch.no_grad():
+        smpl_forward(smpl, betas, pose, pose2rot=True)
+    assert LS.LAUNCHES == before + 1
+
+
+def test_train_validation_on_cuda_matches_cpu(cuda):
+    """Trainer validation's scan on the card, through the kernel, against
+    the CPU: 0.1 mm joints and vertex error."""
+    import make_torch_train_golden as tg
+    from tepose_tpu_torch.train.validate import validate_scan
+
+    feats_np = (np.random.RandomState(2).randn(3, 12, 2048) * 0.1).astype(
+        np.float32)
+    outs = []
+    for device in ("cpu", cuda):
+        setup = tg.port_setup(TRAIN_SPEC, device)
+        feats = torch.from_numpy(feats_np).to(device)
+        pseu = torch.zeros(3, 5, 85, device=device)
+        pseu[..., 0] = 1.0
+        theta = torch.zeros(3, 12, 85, device=device)
+        jreg = torch.full((17, 700), 1 / 700, device=device)
+        before = LS.LAUNCHES
+        outs.append(validate_scan(setup["gen"].eval(), setup["smpl"], feats,
+                                  pseu, theta, jreg, 7))
+        assert LS.LAUNCHES == before + (14 if device == cuda else 0)
+    for k in ("pred_j3d", "pve"):
+        np.testing.assert_allclose(outs[1][k].cpu().numpy(),
+                                   outs[0][k].numpy(), atol=1e-4, rtol=0)
