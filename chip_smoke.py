@@ -69,6 +69,36 @@ Phases, each of which raises on failure (no phase's error is caught):
      device idle share and kernels per window from one profiled segment,
      and validation ms per window (one batch of 8 videos).
 
+  9. the demo's and evaluate's host CLI paths at full width (TePose and
+     VIBE 2 x 1024, VIBE seqlen 16, ResNet-50, synthetic SMPL with 6890
+     vertices, strict float32): (a) `run_eval(--synthetic, 3dpw)` without
+     and with `--filter`, counts zeroed before each and read after: finite
+     metrics and one more LBS launch per video with --filter; then
+     `evaluate.filter_video_predictions` on the stored thetas of
+     tests/golden/torch_port_demo_f32.npz (from
+     tools/make_torch_demo_golden.py) within 1e-4 m of JAX's J14 joints;
+     (b) `smplify_refine` on the golden's tracklet (T = 48, 60 Adam
+     iterations, lr 0.02) within the bars of that tool (4x the larger
+     float32-versus-float64 drift on the CPU), its loss trace falling, with
+     exactly one LBS launch (the final forward; the objective skins
+     nothing); (c) the offline demo after decode (`demo.track` and
+     `demo.run_offline`) on 64 numpy-drawn 320 x 240 frames of two moving
+     figures, once with a --detections npz of two tracklets, --smooth and
+     --sideview, once with OpenPose JSONs of projected SMPL joints
+     (--tracking_method pose), --run_smplify and --smooth: the engine's
+     outputs equal a direct `run_tracklets_from_crops` on the same crops,
+     the smoothed vertices equal the plain einsum's on the same theta
+     within 1e-5, the native library is the one built from source,
+     rendered frames have the input's height and twice its width and
+     change only inside the projected meshes' box, and the engine,
+     --smooth and SMPLify each launch the LBS kernel; (d) timings: the
+     demo's stage times, SMPLify ms and kernels per iteration and its idle
+     share (one `torch.profiler` run), --filter's added ms per video (the
+     filter step on the golden's 64-frame video, timed alone), and
+     the LBS kernel against its plain version at B = 48 and 600 (error
+     within 1e-5, device time, bound). No cv2 is needed: the frames never
+     pass through a video file.
+
 Before the last line it prints one JSON line with the kernels' routes,
 launches per path, errors and times; the last line is the ok/device JSON
 object.
@@ -595,6 +625,355 @@ def phase8_train(card: str) -> dict:
     return {"launches": launches}
 
 
+# phase 9's shapes: the demo clip, SMPLify's tracklet length and a long
+# video's --filter rebuild as LBS launch sizes
+DEMO_T, DEMO_H, DEMO_W = 64, 240, 320
+DEMO_LBS_BATCHES = (48, 600)
+DEMO_DIR = os.path.join(REPO, "build", "chip_smoke_demo")
+
+
+def demo_frames(T: int = DEMO_T, h: int = DEMO_H, w: int = DEMO_W):
+    """T RGB frames drawn with numpy: two filled ellipses (the figures)
+    moving over a noisy static background; and each figure's boxes
+    (T, 4) = (cx, cy, w, h)."""
+    rs = np.random.RandomState(3)
+    bg = rs.randint(30, 50, (h, w, 3)).astype(np.uint8)
+    yy, xx = np.mgrid[:h, :w]
+    figures = [((0.3, 0.5), (22, 60), (220, 170, 60), 0.0),
+               ((0.7, 0.52), (25, 66), (60, 180, 220), 1.7)]
+    frames, boxes = [], [[] for _ in figures]
+    for t in range(T):
+        img = bg.copy()
+        for i, ((fx, fy), (ax, ay), color, ph) in enumerate(figures):
+            cx = w * fx + 30 * np.sin(t / 9.0 + ph)
+            cy = h * fy + 8 * np.cos(t / 7.0 + ph)
+            inside = ((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2 <= 1.0
+            img[inside] = color
+            boxes[i].append([cx, cy, 2.2 * ax, 2.2 * ay])
+        frames.append(img)
+    return frames, [np.asarray(b, np.float32) for b in boxes]
+
+
+def write_demo_inputs(boxes) -> tuple:
+    """A --detections npz of the figures' tracklets, and OpenPose (staf)
+    keypoint JSONs: SMPL joints of a seeded pose track, projected with a
+    weak-perspective camera into each figure's box."""
+    from tepose_tpu_torch.data.kp_utils import convert_kps
+    from tepose_tpu_torch.models.regressor import projection
+    from tepose_tpu_torch.models.smpl import (
+        smpl_joints_reduced, synthetic_smpl_model)
+    from tepose_tpu_torch.ops.geometry import batch_rodrigues
+
+    os.makedirs(DEMO_DIR, exist_ok=True)
+    det = os.path.join(DEMO_DIR, "detections.npz")
+    T = len(boxes[0])
+    np.savez(det, **{k: v for i, b in enumerate(boxes) for k, v in (
+        (f"tracklet_{i}_bbox", b),
+        (f"tracklet_{i}_frames", np.arange(T)))})
+    json_dir = os.path.join(DEMO_DIR, "staf_json")
+    os.makedirs(json_dir, exist_ok=True)
+    rs = np.random.RandomState(4)
+    smpl = synthetic_smpl_model(0, device="cpu")
+    people = [[] for _ in range(T)]
+    for pid, b in enumerate(boxes):
+        aa = rs.randn(T, 24, 3).astype(np.float32) * 0.15
+        aa[:, 0] = [np.pi, 0.0, 0.0]          # upright in image coords
+        with torch.no_grad():
+            rot = batch_rodrigues(torch.from_numpy(aa).reshape(-1, 3))
+            j49 = smpl_joints_reduced(
+                smpl, torch.zeros(T, 10), rot.reshape(T, 24, 3, 3))
+            kp = projection(j49, torch.tensor([[0.9, 0.0, 0.0]] * T)).numpy()
+        side = np.maximum(b[:, 2], b[:, 3])[:, None]
+        px = np.stack([b[:, :1] + kp[..., 0] * side / 2,
+                       b[:, 1:2] + kp[..., 1] * side / 2,
+                       np.ones_like(kp[..., 0])], -1)
+        staf = convert_kps(px.astype(np.float32), "spin", "staf")
+        for t in range(T):
+            people[t].append({"person_id": [pid],
+                              "pose_keypoints_2d": staf[t].ravel().tolist()})
+    for t in range(T):
+        with open(os.path.join(json_dir, f"{t:06d}_keypoints.json"),
+                  "w") as f:
+            json.dump({"people": people[t]}, f)
+    return det, json_dir
+
+
+def mesh_pixels(rendered, frame, results, t: int) -> int:
+    """How many pixels of frame t the render changed; raises if one lies
+    outside the box (grown by 2 px) that the meshes project to."""
+    diff = np.any(rendered != frame, axis=-1)
+    h, w = diff.shape
+    x0 = y0 = np.inf
+    x1 = y1 = -np.inf
+    for r in results.values():
+        sx, sy, tx, ty = r["orig_cam"][t]
+        v = r["verts"][t]
+        px = (1 + sx * (v[:, 0] + tx)) * 0.5 * w
+        py = (1 + sy * (-v[:, 1] + ty)) * 0.5 * h
+        x0, x1 = min(x0, px.min()), max(x1, px.max())
+        y0, y1 = min(y0, py.min()), max(y1, py.max())
+    ys, xs = np.nonzero(diff)
+    if len(xs) and (xs.min() < x0 - 2 or xs.max() > x1 + 2
+                    or ys.min() < y0 - 2 or ys.max() > y1 + 2):
+        raise RuntimeError(f"frame {t}: the render changed pixels outside "
+                           f"the meshes' projection")
+    return len(xs)
+
+
+def phase9_demo(card: str) -> dict:
+    import make_torch_demo_golden as dg
+    from kernel_timing import device_ms, lbs_bound, lbs_inputs, profile_device
+    import tepose_tpu_torch.models.smpl as smpl_mod
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from tepose_tpu_torch import demo, native
+    from tepose_tpu_torch.config import parse_args
+    from tepose_tpu_torch.evaluate import run_eval
+    from tepose_tpu_torch.ops.geometry import batch_rodrigues
+    from tepose_tpu_torch.evaluate import (
+        filter_video_predictions, synthetic_eval_data, synthetic_j_regressor)
+    from tepose_tpu_torch.models.smpl import synthetic_smpl_model
+    from tepose_tpu_torch.streaming.demo_utils import (
+        convert_crop_cam_to_orig_img)
+    from tepose_tpu_torch.streaming.engine import StreamingEngine
+
+    res = {"card": card}
+    golden = dg.load_golden()
+    spec = golden["spec"]
+
+    # (a) evaluate --filter through the entry point, then the golden
+    cfg, _, args = parse_args([
+        "--cfg", os.path.join(REPO, "configs", "repr_wopw_3dpw_model.yaml"),
+        "--dataset", "3dpw"])
+    launches, seconds = {}, {}
+    for flt in (False, True):
+        args.filter = flt
+        lbs.LAUNCHES = 0
+        r = run_eval(cfg, args, synthetic=True, device="cuda")
+        torch.cuda.synchronize()
+        launches[flt], seconds[flt] = lbs.LAUNCHES, r["seconds"]
+        metrics = [r[k] for k in ("mpjpe", "pa_mpjpe", "mpvpe", "accel_err")]
+        if not all(np.isfinite(v) for v in metrics):
+            raise RuntimeError(f"non-finite metrics from run_eval --filter "
+                               f"{flt}: {r}")
+    args.filter = False
+    n_videos = len(synthetic_eval_data())
+    if launches[True] != launches[False] + n_videos:
+        raise RuntimeError(f"--filter launched {launches[True]} LBS kernels, "
+                           f"not {launches[False]} + {n_videos} videos")
+    j14 = dg.port_filter(spec, golden["filter_theta"], "cuda")
+    dev_f = float(np.abs(j14 - golden["filter_j14"]).max())
+    # --filter's added time per video: the filter step itself on the
+    # golden's video, timed alone (whole eval runs differ by more than it)
+    smpl = synthetic_smpl_model(0, device="cuda")
+    jreg = torch.as_tensor(synthetic_j_regressor(smpl.num_verts),
+                           device="cuda")
+    secs = host_seconds(lambda: filter_video_predictions(
+        smpl, golden["filter_theta"], jreg), reps=5)
+    res["filter_ms_per_video"] = 1e3 * float(np.median(secs))
+    print(f"phase 9a: run_eval --filter synthetic 3dpw on cuda: lbs launches "
+          f"{launches[True]} (unfiltered {launches[False]}, {n_videos} "
+          f"videos), eval loop {seconds[True]:.3f} s (unfiltered "
+          f"{seconds[False]:.3f} s); filter_video_predictions on the "
+          f"golden's {len(j14)} thetas (V={spec['num_verts']}): J14 "
+          f"deviation {dev_f:.3e} / {dg.FILTER_ATOL:.0e} m, "
+          f"{res['filter_ms_per_video']:.2f} ms per video (median of "
+          f"{[round(1e3 * x, 2) for x in secs]} ms, host clock to a "
+          f"synchronise) [{card}]")
+    if not dev_f <= dg.FILTER_ATOL:
+        raise RuntimeError(f"--filter misses the JAX golden: {dev_f}")
+
+    # (b) SMPLify on the card against the JAX golden
+    kp = golden["kp_2d_target"]
+    lbs.LAUNCHES = 0
+    out = dg.port_smplify(spec, kp, "cuda")
+    torch.cuda.synchronize()
+    smplify_launches = lbs.LAUNCHES
+    dev_s = dg.golden_deviation(dg.smplify_outputs(out, spec), golden)
+    losses = out["losses"].cpu().numpy()
+    print(f"phase 9b: smplify_refine on cuda (T={spec['T']}, "
+          f"{spec['num_iters']} iterations, lr {spec['lr']}, "
+          f"V={spec['num_verts']}): loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"lbs launches {smplify_launches}; deviation from the JAX golden "
+          f"/ bar: " + ", ".join(f"{k} {d:.3e} / {b:.0e}"
+                                 for k, (d, b) in dev_s.items()))
+    bad = {k: v for k, v in dev_s.items() if not v[0] <= v[1]}
+    if bad:
+        raise RuntimeError(f"SMPLify misses the JAX golden: {bad}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"SMPLify's loss did not fall: {losses}")
+    if smplify_launches != 1:
+        raise RuntimeError(f"SMPLify launched {smplify_launches} LBS "
+                           f"kernels; the objective must skin nothing and "
+                           f"the final forward once")
+
+    # (c) the offline demo after decode
+    frames, boxes = demo_frames()
+    det_path, json_dir = write_demo_inputs(boxes)
+    common = ["--synthetic", "--gpu", "0", "--output_folder", DEMO_DIR,
+              "--smooth"]
+    dargs = demo.parse_args(common + ["--detections", det_path,
+                                      "--sideview"])
+    models = demo.build_demo_models(dargs)
+    t0 = time.perf_counter()
+    tracklets = demo.track(frames, dargs)
+    track_s = time.perf_counter() - t0
+    demo_out = demo.run_offline(frames, tracklets, models, dargs)
+    if len(tracklets) != 2 or len(demo_out["results"]) != 2:
+        raise RuntimeError(f"demo: {len(tracklets)} tracklets")
+    lib = native.get_lib()
+    if lib._name != str(native.library_path()) or not os.path.isfile(
+            lib._name):
+        raise RuntimeError(f"the native library {lib._name} is not the one "
+                           f"built from source")
+    engine = StreamingEngine(models.smpl, models.gen, models.vibe,
+                             models.backbone)
+    direct = engine.run_tracklets_from_crops(
+        [demo.tracklet_crops(frames, tracklets[p])[1] for p in tracklets])
+    dev_e = 0.0
+    for a, b in zip(demo_out["engine_outputs"], direct):
+        for k in b:
+            scale = max(1.0, float(np.abs(b[k]).max()))
+            dev_e = max(dev_e, float(np.abs(a[k] - b[k]).max()) / scale)
+    if not dev_e <= 1e-6:
+        raise RuntimeError(f"the demo's engine outputs differ from a direct "
+                           f"run_tracklets_from_crops: {dev_e}")
+    dev_v = 0.0
+    plain_skin = smpl_mod.lbs_skinning
+    smpl_mod.lbs_skinning = lbs.lbs_skinning_reference
+    try:
+        with torch.no_grad():
+            for r in demo_out["results"].values():
+                T = len(r["pose"])
+                rot = batch_rodrigues(torch.as_tensor(
+                    r["pose"].reshape(-1, 3), dtype=torch.float32,
+                    device="cuda")).reshape(T, 24, 3, 3)
+                ref = smpl_mod.smpl_forward(models.smpl, torch.as_tensor(
+                    r["betas"], dtype=torch.float32, device="cuda"),
+                    rot)["verts"].cpu().numpy()
+                dev_v = max(dev_v, float(np.abs(ref - r["verts"]).max()))
+    finally:
+        smpl_mod.lbs_skinning = plain_skin
+    if not dev_v <= KERNEL_ATOL:
+        raise RuntimeError(f"--smooth verts differ from the plain einsum's: "
+                           f"{dev_v}")
+    # the network's random weights may put a mesh outside the frame, so
+    # the same results are also drawn at an in-view camera, [0.9, 0, 0] in
+    # each crop; either way pixels change only where the meshes project
+    # (and, in view, in every frame)
+    in_view = {p: dict(r, orig_cam=convert_crop_cam_to_orig_img(
+        np.tile([0.9, 0.0, 0.0], (DEMO_T, 1)), r["bboxes"], DEMO_W, DEMO_H))
+        for p, r in demo_out["results"].items()}
+    changed_px = {}
+    for name, results, rendered in (
+            ("demo", demo_out["results"], demo_out["frames"]),
+            ("in view", in_view,
+             demo.render_frames(frames, in_view, models.faces, dargs))):
+        if len(rendered) != DEMO_T or any(
+                f.shape != (DEMO_H, 2 * DEMO_W, 3) for f in rendered):
+            raise RuntimeError(f"rendered frames: {len(rendered)} of shape "
+                               f"{rendered[0].shape}")
+        changed_px[name] = [mesh_pixels(rendered[t][:, :DEMO_W], frames[t],
+                                        results, t) for t in range(DEMO_T)]
+    if min(changed_px["in view"]) == 0:
+        raise RuntimeError("a frame with meshes in view rendered no mesh")
+    print(f"phase 9c: demo --detections --smooth --sideview on cuda, "
+          f"{DEMO_T} frames {DEMO_W}x{DEMO_H}, {len(tracklets)} tracklets: "
+          f"engine vs direct run_tracklets_from_crops {dev_e:.1e} "
+          f"(relative), smoothed verts vs plain einsum {dev_v:.3e} m, "
+          f"rendered frames {(DEMO_H, 2 * DEMO_W, 3)}, mesh pixels per "
+          f"frame " + ", ".join(f"{k} {min(v)}-{max(v)}"
+                                for k, v in changed_px.items())
+          + f"; native library "
+          f"{os.path.basename(lib._name)}; lbs launches "
+          f"{dict(demo_out['launches'])}")
+
+    sargs = demo.parse_args(common + ["--tracking_method", "pose",
+                                      "--staf_dir", json_dir,
+                                      "--run_smplify"])
+    t0 = time.perf_counter()
+    pose_tracklets = demo.track(frames, sargs)
+    track_s = min(track_s, time.perf_counter() - t0)
+    if len(pose_tracklets) != 2 or not all(
+            "joints2d" in v for v in pose_tracklets.values()):
+        raise RuntimeError(f"pose tracklets: {list(pose_tracklets)}")
+    demo.run_offline(frames, pose_tracklets, models, sargs)  # warm-up
+    smp_out = demo.run_offline(frames, pose_tracklets, models, sargs)
+    dl = smp_out["launches"]
+    for stage in ("engine", "smooth", "smplify"):
+        if not dl[stage] > 0:
+            raise RuntimeError(f"demo stage {stage} never launched the lbs "
+                               f"kernel: {dict(dl)}")
+    for r in smp_out["results"].values():
+        for k in ("verts", "pose", "betas", "joints3d", "kp_2d"):
+            if not np.isfinite(r[k]).all():
+                raise RuntimeError(f"demo --run_smplify: non-finite {k}")
+    stages = {k: 1e3 * v["total_s"] for k, v in
+              smp_out["timer"].summary().items()}
+    stages["track"] = 1e3 * track_s
+    res["demo_stage_ms"] = stages
+    res["demo_launches"] = dict(dl)
+    print(f"phase 9c: demo --tracking_method pose --run_smplify --smooth on "
+          f"cuda ({len(pose_tracklets)} tracklets of {DEMO_T} frames): lbs "
+          f"launches {dict(dl)}; stage ms " + ", ".join(
+              f"{k} {v:.1f}" for k, v in stages.items()) + f" [{card}]")
+
+    # (d) SMPLify per iteration, and the LBS kernel at the new sizes
+    n_it = spec["num_iters"]
+    secs = host_seconds(lambda: dg.port_smplify(spec, kp, "cuda"), reps=3)
+    prof = profile_device(lambda: dg.port_smplify(spec, kp, "cuda"))
+    res["smplify_ms_per_iter"] = 1e3 * float(np.median(secs)) / n_it
+    res["smplify_s"] = secs
+    if prof is None:
+        res.update(smplify_kernels_per_iter="not measured",
+                   smplify_idle_share="not measured")
+    else:
+        res.update(smplify_kernels_per_iter=prof["kernels"] / n_it,
+                   smplify_idle_share=prof["idle_share"],
+                   smplify_busy_ms=prof["busy_ms"],
+                   smplify_span_ms=prof["span_ms"],
+                   smplify_top_kernels_ms=prof["top_kernels_ms"],
+                   smplify_top_host_ops_ms=prof["top_host_ops_ms"])
+    print(f"phase 9d: smplify_refine T={spec['T']} on cuda: "
+          f"{res['smplify_ms_per_iter']:.3f} ms/iteration (median of "
+          f"{[round(x, 4) for x in secs]} s per {n_it} iterations, host "
+          f"clock to a synchronise); kernels/iteration "
+          f"{res['smplify_kernels_per_iter']}, idle share "
+          f"{res['smplify_idle_share']} (one profiled run) [{card}]")
+
+    rs = np.random.RandomState(9)
+    res["lbs"] = {}
+    for B in DEMO_LBS_BATCHES:
+        wT, A, v = lbs_inputs(rs, B, LBS_V, torch.device("cuda"))
+        err = float((lbs.lbs_skinning(wT, A, v)
+                     - lbs.lbs_skinning_reference(wT, A, v)).abs().max())
+        if not err <= KERNEL_ATOL:
+            raise RuntimeError(f"lbs kernel disagrees at B={B}: {err}")
+
+        def kernel():
+            lbs.lbs_skinning(wT, A, v)
+
+        def plain():
+            lbs.lbs_skinning_reference(wT, A, v)
+
+        times = {kernel: [], plain: []}
+        for fn in (plain, kernel, kernel, plain):
+            times[fn] += device_ms(fn, launches=50 if fn is kernel else 5)
+        ms, plain_ms = (float(np.median(times[f])) for f in (kernel, plain))
+        bound_ms, bound_by = lbs_bound(B, LBS_V, wT.shape[0])
+        res["lbs"][B] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
+        print(f"phase 9d: lbs B={B} V={LBS_V} max_abs_err={err:.3e}; device "
+              f"{ms:.5f} ms per launch, bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of bound; plain einsum {plain_ms:.5f} ms "
+              f"[{card}]")
+    print(json.dumps({"demo_timings": res}))
+    return {"launches": {"eval_filter": launches[True],
+                         "smplify": smplify_launches,
+                         "demo": int(sum(demo_out["launches"].values())
+                                     + sum(dl.values()))},
+            "lbs": res["lbs"]}
+
+
 def main() -> None:
     card = phase0_device()
     sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
@@ -606,10 +985,16 @@ def main() -> None:
     p6 = phase6_live(p5)
     phase7_timings(p5, card)
     p8 = phase8_train(card)
+    p9 = phase9_demo(card)
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
     by_path = {"eval": sl["launches"], "engine": p5["launches"],
-               "live": p6["launches"], "train_validation": p8["launches"]}
+               "live": p6["launches"], "train_validation": p8["launches"],
+               **p9["launches"]}
+    for B, r in p9["lbs"].items():
+        kern["device_ms"][B], kern["plain_ms"][B] = r["ms"], r["plain_ms"]
+        kern["bound"][B] = (r["bound_ms"], r["bound_by"])
+        kern["max_abs_err"] = max(kern["max_abs_err"], r["max_abs_err"])
     print(json.dumps({"kernels": [{
         "name": "lbs_skinning", "route": "cuda",
         "source": "tepose_tpu_torch/csrc/lbs_skinning.cu",

@@ -12,10 +12,13 @@ the ResNet-50 backbone, the lane-batched fast encoder and window scan, the
 offline `streaming.engine.StreamingEngine` and the frame-at-a-time
 `streaming.live.LiveSession`, and the training path behind
 `python -m tepose_tpu_torch.train` (the GCN motion discriminator, the
-masked LSGAN loss, the theta-feedback trainer, validation and checkpoints).
+masked LSGAN loss, the theta-feedback trainer, validation and checkpoints),
+and the host CLI around them: `python -m tepose_tpu_torch.demo` (offline and
+live, with the trackers, 1-euro smoothing, Temporal SMPLify and the native
+rasterizer) and evaluate's `--filter`, `--render` and `--plot`.
 Every SMPL forward that builds the mesh skins through the LBS kernel, CUDA
 C++ written for sm_90a (`csrc/lbs_skinning.cu`, built by `kernels.py`);
-the train step reads the vertex-free joints instead.
+the train step and SMPLify's objective read the vertex-free joints instead.
 """
 
 __version__ = "0.1.0"

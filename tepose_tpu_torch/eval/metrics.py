@@ -3,7 +3,8 @@
 Port of `tepose_tpu/eval/metrics.py` (`mpjpe`, `pa_mpjpe`,
 `host_joint_errors`, `accel_error_eval`, and copies of the numpy
 `accel_magnitude_masked` / `accel_error_masked` that trainer validation
-uses). Distances are in the input unit
+uses, and of `plot_accel`, the `--plot` figure, with matplotlib imported
+inside it). Distances are in the input unit
 (metres for SMPL); callers multiply by 1000 for millimetres.
 """
 
@@ -85,3 +86,38 @@ def accel_error_masked(pred: np.ndarray, target: np.ndarray,
         total += np.sum(normed[i, seqlen - 1:int(vidlen_each[i]) - 4])
     denom = np.sum(vidlen_each) - vidlen_each.shape[0] * (seqlen + 3) + 1e-8
     return float(total / denom)
+
+
+def plot_accel(joints_pred: np.ndarray, joints_gt: np.ndarray, out_dir: str,
+               name: str = "") -> str:
+    """Save an acceleration-error-over-time plot (the --plot flag).
+
+    ref: eval_utils.py:10-50 (plot_accel). joints (T, K, 3); returns the
+    saved figure path.
+    """
+    import os
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    accel_err = accel_error_eval(np.asarray(joints_pred),
+                                 np.asarray(joints_gt)) * 1000.0
+    t = np.arange(len(accel_err))
+    plt.figure(figsize=(15, 8))
+    plt.plot(t, accel_err, label="TePose (ours)", color="#FF7F0E")
+    plt.xlabel("time step", fontsize=10)
+    plt.ylabel("acceleration error ($mm/s^2$)", fontsize=10)
+    plt.tick_params(axis="x", which="both", bottom=False, top=False,
+                    labelbottom=False)
+    plt.xlim(-10, len(accel_err) + 10)
+    plt.ylim(bottom=-3)
+    plot_dir = os.path.join(out_dir, "plot")
+    os.makedirs(plot_dir, exist_ok=True)
+    path = os.path.join(plot_dir, f"tepose_accel_pred_error_{name}.png")
+    plt.savefig(path, bbox_inches="tight")
+    plt.close()
+    np.save(os.path.join(plot_dir, f"tepose_accel_pred_{name}.npy"),
+            accel_err)
+    return path

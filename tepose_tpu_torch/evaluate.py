@@ -11,8 +11,11 @@ Videos are bucketed by length, padded and evaluated in batches through
 `eval.evaluator.eval_rollout`, with the same bucket and batch defaults as
 the JAX CLI (`--eval_bucket`, `--eval_batch`). Matmuls and cuDNN run in
 strict float32 (TF32 off); `--precision` accepts only `float32`.
-`--filter`, `--render`, `--render_plain`, `--plot` and `--devices` belong
-to later slices of the port and raise.
+`--filter` slerp-smooths each video's rotations and rebuilds its mesh and
+H36M J14 joints on the device (`filter_video_predictions`), `--plot`
+saves the acceleration-error figure and `--render` / `--render_plain`
+overlay each video's rebuilt mesh with the native rasterizer, as the JAX
+CLI does. `--devices` belongs to the scale-out slice and raises.
 """
 
 from __future__ import annotations
@@ -24,9 +27,6 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-
-LATER_SLICE_FLAGS = ("filter", "render", "render_plain", "plot")
-
 
 def strict_f32() -> None:
     """Full float32 for matmuls and cuDNN (its GRUs included): TF32 keeps
@@ -150,6 +150,31 @@ def make_eval_batch(data: Dict[str, dict], chunk: List[str], seqlen: int,
     return {"feats": feats, "theta_pseu": pseu, "theta_gt": theta_gt}
 
 
+def filter_video_predictions(smpl, pred_theta: np.ndarray,
+                             j_regressor: torch.Tensor) -> np.ndarray:
+    """`--filter` for one video: slerp-smooth the rotations of pred_theta
+    (L, 85) (ratio 0.3, on the host), rebuild the SMPL mesh on `smpl`'s
+    device and regress the H36M J14 joints (L, 14, 3) from it, as the JAX
+    `evaluate.py` does (ref: evaluate.py:273-291)."""
+    from tepose_tpu_torch.models.smpl import (
+        H36M_TO_J14, regress_h36m_joints, smpl_forward)
+    from tepose_tpu_torch.ops.geometry import batch_rodrigues
+    from tepose_tpu_torch.ops.quaternion import smooth_rotmats_slerp
+
+    dev = smpl.v_template.device
+    L = len(pred_theta)
+    theta = torch.from_numpy(np.ascontiguousarray(pred_theta,
+                                                  np.float32)).to(dev)
+    with torch.no_grad():
+        rm = batch_rodrigues(theta[:, 3:75].reshape(-1, 3)).reshape(
+            L, 24, 3, 3).cpu().numpy()
+        rm = smooth_rotmats_slerp(rm, ratio=0.3)
+        verts = smpl_forward(smpl, theta[:, 75:].contiguous(),
+                             torch.from_numpy(rm).to(dev))["verts"]
+        return regress_h36m_joints(verts, j_regressor,
+                                   subset=H36M_TO_J14).cpu().numpy()
+
+
 def run_eval(cfg, args, synthetic: bool = False, *,
              device: torch.device | str) -> Dict[str, float]:
     """Evaluate on `device`; returns the metric summary (mm) plus `frames`
@@ -160,12 +185,12 @@ def run_eval(cfg, args, synthetic: bool = False, *,
     from tepose_tpu_torch.eval.evaluator import (
         EvalAccumulator, eval_rollout, spin49_to_eval_format)
 
-    for flag in LATER_SLICE_FLAGS:
-        if getattr(args, flag, False):
-            raise SystemExit(f"--{flag} is not ported to tepose_tpu_torch "
-                             "yet; run the JAX evaluate.py for it")
     strict_f32()
     dataset = args.dataset
+    if args.filter and dataset == "mpii3d":
+        sys.exit("--filter is not supported for mpii3d: the slerp-smoothed "
+                 "rebuild regresses J14 joints through the H36M J_regressor "
+                 "(ref: evaluate.py:288-290), which mpii3d eval does not use")
     smpl, gen, vibe, j_regressor = build_models(cfg, synthetic, device)
     S = gen.cfg.seqlen
     jreg = j_regressor if dataset != "mpii3d" else None
@@ -173,7 +198,7 @@ def run_eval(cfg, args, synthetic: bool = False, *,
     if synthetic:
         data = synthetic_eval_data()
     else:
-        db_file, pse_file = eval_db_paths(dataset, cfg.TITLE, False)
+        db_file, pse_file = eval_db_paths(dataset, cfg.TITLE, args.render)
         print(f"Load data from {db_file}")
         data = key_eval_db_by_video(load_db(db_file),
                                     load_pseudotheta(pse_file),
@@ -205,12 +230,16 @@ def run_eval(cfg, args, synthetic: bool = False, *,
                                batch["theta_pseu"], batch["theta_gt"], jreg,
                                W)
             pred_j3d = out["pred_j3d"].cpu().numpy()
+            pred_theta = out["pred_theta"].cpu().numpy()
             mpvpe = out["mpvpe"].cpu().numpy()
 
             for b, n in enumerate(chunk):
                 d = data[n]
                 L = lengths[n]
                 pj = pred_j3d[b, :L]
+                if args.filter:
+                    pj = filter_video_predictions(smpl, pred_theta[b, :L],
+                                                  j_regressor)
                 tgt = d["joints3D"][:L].astype(np.float32)
                 valid_map = None
                 if dataset == "mpii3d":
@@ -223,6 +252,17 @@ def run_eval(cfg, args, synthetic: bool = False, *,
                     valid_map = vm[vm < L]
                 elif tgt.shape[1] == 49:
                     tgt = convert_kps(tgt, "spin", "common")
+
+                if args.plot:
+                    from tepose_tpu_torch.eval.metrics import plot_accel
+
+                    plot_accel(pj, tgt, f"./output/{dataset}_test_output",
+                               name=args.seq or n)
+
+                if args.render or args.render_plain:
+                    render_eval_video(dataset, n, d, pred_theta[b, :L], smpl,
+                                      args, frame_start=args.frame)
+
                 acc.add_video(
                     pj, tgt,
                     mpvpe=mpvpe[b, :L] if dataset == "3dpw" else None,
@@ -237,6 +277,70 @@ def run_eval(cfg, args, synthetic: bool = False, *,
     res["frames"] = tot_frames
     res["seconds"] = dt
     return res
+
+
+def render_eval_video(dataset, seq_name, d, pred_theta, smpl, args,
+                      frame_start=0, num_frames_to_render=240):
+    """Mesh overlay of an eval sequence with the native rasterizer, as the
+    JAX `evaluate.py::_render_eval_video` (ref: evaluate.py:304-390): the
+    mesh is rebuilt from pred_theta (L, 85) on `smpl`'s device; frames
+    whose source image is missing, and every frame under --render_plain,
+    render on a black 480 x 480 canvas."""
+    import cv2
+
+    from tepose_tpu_torch.config import BASE_DATA_DIR
+    from tepose_tpu_torch.models.smpl import (
+        hull_faces, load_smpl_faces, smpl_forward)
+    from tepose_tpu_torch.native import render_mesh
+    from tepose_tpu_torch.ops.geometry import batch_rodrigues
+    from tepose_tpu_torch.streaming.demo_utils import (
+        convert_crop_cam_to_orig_img, write_video)
+
+    faces_path = osp.join(BASE_DATA_DIR, "smpl_neutral.npz")
+    faces = (load_smpl_faces(faces_path) if osp.isfile(faces_path)
+             else hull_faces(smpl))
+
+    L = len(pred_theta)
+    dev = smpl.v_template.device
+    theta = torch.from_numpy(np.ascontiguousarray(pred_theta,
+                                                  np.float32)).to(dev)
+    with torch.no_grad():
+        rm = batch_rodrigues(theta[:, 3:75].reshape(-1, 3)).reshape(
+            L, 24, 3, 3)
+        verts = smpl_forward(smpl, theta[:, 75:].contiguous(),
+                             rm)["verts"].cpu().numpy()
+    cams = pred_theta[:, :3]
+
+    imgnames = d.get("imgname")
+    bboxes = d.get("bbox")
+    out_dir = f"./output/{dataset}_test_output"
+    frames = []
+    W_img = H_img = 480
+    for i in range(min(L, num_frames_to_render)):
+        fi = frame_start + i
+        img = None
+        if imgnames is not None and not args.render_plain:
+            path = str(imgnames[min(fi, len(imgnames) - 1)])
+            if osp.isfile(path):
+                img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+        if img is None:
+            img = np.zeros((H_img, W_img, 3), np.uint8)
+        h, w = img.shape[:2]
+        if bboxes is not None and not args.render_plain:
+            bb = bboxes[min(fi, len(bboxes) - 1)].copy()[None, :]
+            bb[:, 2:] = bb[:, 2:] * 1.2
+            cam4 = convert_crop_cam_to_orig_img(cams[i:i + 1], bb, w, h)[0]
+        else:
+            cam4 = np.array([1.0, 1.0, 0.0, 0.0], np.float32)
+        frames.append(render_mesh(verts[i], faces, cam4, img,
+                                  color=(1.0, 1.0, 0.9)))
+    tag = "_plain" if args.render_plain else ""
+    safe = str(seq_name).split("/")[-1]
+    out_path = osp.join(out_dir, "video",
+                        f"tepose_{safe}{tag}_{frame_start}.mp4")
+    write_video(frames, out_path, fps=25.0)
+    print(f"Saving result video to {osp.abspath(out_path)}")
+    return out_path
 
 
 def main():

@@ -2,7 +2,8 @@
 linear blend skinning.
 
 Port of `tepose_tpu/models/smpl.py` (constants, `SmplModel`,
-`load_smpl_assets`, `synthetic_smpl_model`, `_rigid_transform`,
+`load_smpl_assets`, `load_smpl_faces`, `synthetic_smpl_model`,
+`_rigid_transform`,
 `smpl_forward`, `joint_reduction_tensors`, `smpl_joints_reduced`,
 `regress_h36m_joints`). Step 5 of the forward, the skinning,
 goes through `ops.lbs_skinning.lbs_skinning`: the CUDA kernel on a CUDA
@@ -180,6 +181,23 @@ def load_smpl_assets(npz_path: str, device: torch.device | str,
             posedirs=z["posedirs"], j_regressor=z["j_regressor"],
             lbs_weights=z["lbs_weights"], j_regressor_extra=j_extra,
             parents=parents, device=device)
+
+
+def load_smpl_faces(npz_path: str) -> np.ndarray:
+    """Triangle faces (F, 3) for rendering/export; empty if absent."""
+    with np.load(npz_path) as z:
+        if "faces" in z:
+            return np.asarray(z["faces"], np.int32)
+    return np.zeros((0, 3), np.int32)
+
+
+def hull_faces(model: SmplModel) -> np.ndarray:
+    """Faces for a model without any: the convex hull of its template, as
+    the JAX `demo.py` and `evaluate.py` build for the synthetic model."""
+    from scipy.spatial import ConvexHull
+
+    pts = model.v_template.detach().cpu().numpy()
+    return ConvexHull(pts).simplices.astype(np.int32)
 
 
 def synthetic_smpl_model(seed: int = 0, num_verts: int = NUM_VERTS,

@@ -10,6 +10,8 @@ rollout feeds its own predictions back and amplifies any difference:
   * `_normalize` clamps the sum of squares before the sqrt.
 
 All functions are batch-first and broadcast over leading axes.
+`estimate_translation_np` / `estimate_translation` are numpy copies of the
+JAX module's host functions, pinned equal by tests/test_torch_host.py.
 """
 
 from __future__ import annotations
@@ -129,3 +131,62 @@ def rot6d_to_rotmat(x: torch.Tensor) -> torch.Tensor:
     b2 = _normalize(a2 - dot * b1)
     b3 = torch.linalg.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-1)
+
+
+def rotmat_to_rot6d(rotmat: torch.Tensor) -> torch.Tensor:
+    """Inverse layout of `rot6d_to_rotmat`: take the first two columns."""
+    cols = rotmat[..., :2]  # (..., 3, 2)
+    return cols.reshape(rotmat.shape[:-2] + (6,))
+
+
+def estimate_translation_np(S: "np.ndarray", joints_2d: "np.ndarray",
+                            joints_conf: "np.ndarray",
+                            focal_length: float = 5000.0,
+                            img_size: float = 224.0):
+    """Weighted-least-squares camera translation from 2D/3D correspondences.
+
+    ref: geometry.py:236-277 (estimate_translation_np) — solves for t such
+    that perspective projection of S + t matches joints_2d, weighted by
+    sqrt(confidence). Host-side numpy (preprocessing/offline use).
+    """
+    import numpy as np
+
+    num_joints = S.shape[0]
+    f = np.array([focal_length, focal_length])
+    center = np.array([img_size / 2.0, img_size / 2.0])
+
+    Z = np.reshape(np.tile(S[:, 2], (2, 1)).T, -1)
+    XY = np.reshape(S[:, 0:2], -1)
+    O = np.tile(center, num_joints)
+    F = np.tile(f, num_joints)
+    weight2 = np.reshape(np.tile(np.sqrt(joints_conf), (2, 1)).T, -1)
+
+    Q = np.array([
+        F * np.tile(np.array([1, 0]), num_joints),
+        F * np.tile(np.array([0, 1]), num_joints),
+        O - np.reshape(joints_2d, -1),
+    ]).T
+    c = (np.reshape(joints_2d, -1) - O) * Z - F * XY
+
+    W = np.diagflat(weight2)
+    Q = W @ Q
+    c = W @ c
+    A = Q.T @ Q
+    b = Q.T @ c
+    return np.linalg.solve(A, b)
+
+
+def estimate_translation(S, joints_2d, focal_length: float = 5000.0,
+                         img_size: float = 224.0):
+    """Batched wrapper using GT joints 25: (ref: geometry.py:280-305)."""
+    import numpy as np
+
+    S = np.asarray(S)[:, 25:, :]
+    joints_2d = np.asarray(joints_2d)[:, 25:, :]
+    conf = joints_2d[:, :, -1]
+    pts = joints_2d[:, :, :-1]
+    out = np.zeros((S.shape[0], 3), np.float32)
+    for i in range(S.shape[0]):
+        out[i] = estimate_translation_np(S[i], pts[i], conf[i],
+                                         focal_length, img_size)
+    return out

@@ -7,7 +7,9 @@ over (2D batch, 3D batch) pairs runs one `train.trainer.train_segment` of
 PA-MPJPE for both optimizers, and a checkpoint (+ best copy). The
 parameters live on the device as the modules' own; the JAX loop's
 FlatPacker carry, AOT compile and coordination barriers have no
-counterpart. `cfg.DEBUG` visualization (cv2, `utils/vis.py`) is not ported.
+counterpart. With `cfg.DEBUG`, every `DEBUG_FREQ`-th segment writes a
+prediction-overlay mp4 of its 3D batch (`_debug_visualize`, cv2 and
+`utils/vis.py`), as the JAX loop does.
 """
 
 from __future__ import annotations
@@ -36,11 +38,7 @@ class TrainLoop:
 
     def __init__(self, *, cfg, gen, disc, smpl, hp, gen_opt, disc_opt,
                  weights, loaders, j_regressor: np.ndarray, logdir: str,
-                 num_iters_per_epoch: int, seed: int = 0):
-        if cfg.DEBUG:
-            raise NotImplementedError(
-                "cfg.DEBUG visualization (cv2, utils/vis.py) is not ported "
-                "to tepose_tpu_torch; set DEBUG: false")
+                 num_iters_per_epoch: int, seed: int = 0, faces=None):
         self.cfg = cfg
         self.gen, self.disc, self.smpl = gen, disc, smpl
         self.hp = hp
@@ -49,6 +47,7 @@ class TrainLoop:
         self.train_2d, self.train_3d, self.disc_loader, self.valid = loaders
         self.j_regressor = j_regressor
         self.logdir = logdir
+        self.faces = faces
         self.num_iters = num_iters_per_epoch
         self.max_valid_batches: Optional[int] = None   # None: every batch
         self.writer = MetricWriter(logdir)
@@ -100,6 +99,9 @@ class TrainLoop:
                 losses.update(metrics["gen_loss"])
             self.writer.add_scalars(metrics, self.global_step,
                                     prefix="train_loss/")
+            if self.cfg.DEBUG and \
+                    self.global_step % max(self.cfg.DEBUG_FREQ, 1) == 0:
+                self._debug_visualize(b3, epoch)
             self.global_step += 1
             if not self.nan_guard.check(float(metrics["gen_loss"]),
                                         self.global_step):
@@ -114,6 +116,55 @@ class TrainLoop:
             f"({time.time() - t0:.1f}s, {num_outer} segments x "
             f"{self.num_iters} windows)")
         return metrics
+
+    def _debug_visualize(self, batch_3d, epoch: int) -> None:
+        """Prediction-mesh debug grid for the current 3D batch: run the
+        current generator over the batch's first windows and overlay the
+        predicted skeleton and mesh with the GT skeleton (ref: trainer.py:
+        272-279 -> vis.py:330-382; without image crops in the feature-based
+        batches, overlays draw on blank canvases). Writes
+        debug_epochEEE_stepSSSSSS.mp4 under the log directory."""
+        try:
+            import cv2
+
+            from tepose_tpu_torch.utils.vis import batch_visualize_vid_preds
+
+            S = self.hp.seqlen
+            dev = self.smpl.v_template.device
+            n = min(4, int(np.asarray(batch_3d["features"]).shape[0]))
+            feats = np.asarray(batch_3d["features"], np.float32)[:n]
+            pseu = np.asarray(batch_3d["theta_pseu"], np.float32)[:n]
+            kp2d_gt = np.asarray(batch_3d["kp_2d"])[:n]
+            W = min(8, feats.shape[1] - S + 1)
+
+            preds = {"theta": [], "kp_2d": [], "verts": []}
+            with torch.no_grad():
+                for j in range(W):  # pseudo-theta feedback: debug only
+                    fb = np.concatenate(
+                        [pseu[:, j:j + S - 1],
+                         np.zeros((n, 1, 85), np.float32)], axis=1)
+                    x = np.concatenate([feats[:, j:j + S], fb], axis=-1)
+                    out = self.gen(torch.from_numpy(x).to(dev), self.smpl)
+                    for k in preds:
+                        preds[k].append(out[k].cpu().numpy())
+            preds = {k: np.stack(v, axis=1) for k, v in preds.items()}
+
+            video = np.zeros((n, W, 224, 224, 3), np.uint8)
+            target = {"kp_2d": kp2d_gt[:, S - 1:S - 1 + W]}
+            grid = batch_visualize_vid_preds(video, preds, target,
+                                             self.faces, max_items=n)
+
+            path = osp.join(self.logdir,
+                            f"debug_epoch{epoch:03d}_"
+                            f"step{self.global_step:06d}.mp4")
+            h, w = grid.shape[1:3]
+            wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 5,
+                                 (w, h))
+            for f in grid:
+                wr.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+            wr.release()
+        except Exception:  # visualization must never kill training
+            self.logger.exception("debug visualization failed")
 
     def _rollback(self) -> None:
         """Restore the last saved checkpoint after persistent non-finite

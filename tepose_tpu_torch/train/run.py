@@ -12,7 +12,10 @@ motion discriminator from seed 1, the regressor warm-started from
 `TRAIN.PRETRAINED_REGRESSOR` when that file exists, the loaders (synthetic
 DBs with `--synthetic`), both optimizers, and `train.fit.TrainLoop.fit`.
 Matmuls and cuDNN run in strict float32; `--precision` accepts `float32`
-only. `--devices`, `--profile` and `cfg.DEBUG` are not ported and raise.
+only. `--devices` and `--profile` are not ported and raise. With
+`cfg.DEBUG` the loop writes prediction-overlay videos, drawing the mesh
+with the SMPL assets' faces, or for the synthetic model a triangle soup
+over its vertices, as `train.py` does.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ def build_train_loop(cfg, *, synthetic: bool = False,
     from tepose_tpu_torch.data.synthetic import synthetic_loaders
     from tepose_tpu_torch.models.gcn import MotionDiscriminator
     from tepose_tpu_torch.models.smpl import (
-        load_smpl_assets, synthetic_smpl_model)
+        load_smpl_assets, load_smpl_faces, synthetic_smpl_model)
     from tepose_tpu_torch.models.tepose import TePose, TePoseConfig
     from tepose_tpu_torch.train.fit import TrainLoop
     from tepose_tpu_torch.train.loss import LossWeights
@@ -67,9 +70,13 @@ def build_train_loop(cfg, *, synthetic: bool = False,
     smpl_npz = osp.join(BASE_DATA_DIR, "smpl_neutral.npz")
     if osp.isfile(smpl_npz):
         smpl = load_smpl_assets(smpl_npz, device)
+        faces = load_smpl_faces(smpl_npz)
     elif synthetic:
         smpl = (synthetic_smpl_model(0, smoke_verts, device=device)
                 if smoke_verts else synthetic_smpl_model(0, device=device))
+        # triangle soup so the DEBUG mesh-overlay path renders something
+        idx = np.arange(smpl.num_verts - 2)
+        faces = np.stack([idx, idx + 1, idx + 2], axis=1)[::7].astype(np.int32)
     else:
         raise FileNotFoundError(f"{smpl_npz} missing — see tools/convert_smpl")
 
@@ -117,7 +124,8 @@ def build_train_loop(cfg, *, synthetic: bool = False,
                      loaders=loaders, j_regressor=j_regressor, logdir=logdir,
                      num_iters_per_epoch=smoke_iters
                      or cfg.TRAIN.NUM_ITERS_PER_EPOCH,
-                     seed=max(cfg.SEED_VALUE, 0))
+                     seed=max(cfg.SEED_VALUE, 0),
+                     faces=faces if len(faces) else None)
     # the reference consumes len(train_3d)/8 outer batches per epoch
     num_outer = 1 if synthetic else max(1, len(loop.train_3d) // 8)
     return loop, num_outer

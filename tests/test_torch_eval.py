@@ -1,7 +1,8 @@
 """Port parity of the eval slice: the theta-feedback rollout against JAX
 `make_eval_scan`, the host metrics and aggregation, the copied host helpers
 (config, kp_utils, db, synthetic data) against their originals, the CLI
-entry point, the golden writer, and that the port never imports JAX.
+entry point, the golden writer, and that the port never imports JAX (nor
+needs cv2, matplotlib or joblib to import).
 
 Small widths (hidden 32, 2 layers, 300 vertices) on the CPU in float32.
 Tolerances: 1e-4 m for per-frame joints and MPVPE and 1e-4 for theta over
@@ -284,9 +285,20 @@ def test_run_eval_cpu_synthetic():
         assert np.isfinite(res[k]) and res[k] > 0, k
 
 
+class _ReachedModels(Exception):
+    pass
+
+
 @pytest.mark.parametrize("flag", ["filter", "render", "render_plain", "plot"])
-def test_run_eval_rejects_later_slice_flags(flag):
-    with pytest.raises(SystemExit, match=f"--{flag} is not ported"):
+def test_run_eval_rejects_later_slice_flags(flag, monkeypatch):
+    """These flags were refused as "not ported" until the demo slice; now
+    run_eval takes each one through to building the models (their outputs
+    are held to the JAX CLI in tests/test_torch_eval_extras.py)."""
+    def reached(*a, **kw):
+        raise _ReachedModels
+
+    monkeypatch.setattr(port_evaluate, "build_models", reached)
+    with pytest.raises(_ReachedModels):
         port_evaluate.run_eval(None, _args(**{flag: True}), synthetic=True,
                                device="cpu")
 
@@ -303,8 +315,14 @@ def test_main_rejects_unported_options(monkeypatch, argv, match):
 
 
 def test_never_imports_jax():
+    """Every port module and chip_smoke import without JAX, with the demo's
+    optional host libraries present and with them blocked (the GPU host
+    has no cv2, matplotlib or joblib)."""
     code = (
-        "import sys, pkgutil, importlib, tepose_tpu_torch\n"
+        "import sys\n"
+        "for name in sys.argv[1:]:\n"
+        "    sys.modules[name] = None\n"
+        "import pkgutil, importlib, tepose_tpu_torch\n"
         "for m in pkgutil.walk_packages(tepose_tpu_torch.__path__,"
         " 'tepose_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -312,12 +330,16 @@ def test_never_imports_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'tepose_tpu.')) or m == 'tepose_tpu')\n"
         "assert not bad, bad\n"
-        "assert 'tepose_tpu_torch.evaluate' in sys.modules\n")
+        "for m in ('evaluate', 'demo', 'native', 'streaming.tracker',\n"
+        "          'utils.vis', 'models.smplify'):\n"
+        "    assert 'tepose_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
+    for blocked in ([], ["cv2", "matplotlib", "joblib"]):
+        proc = subprocess.run([sys.executable, "-c", code, *blocked],
+                              cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode == 0, (blocked, proc.stderr)
 
 
 SMALL_SPEC = dict(golden_writer.FULL_SPEC, hidden_size=32, vibe_hidden_size=32,

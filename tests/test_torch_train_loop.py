@@ -447,8 +447,51 @@ def test_main_rejects_unported_options(monkeypatch, argv, match):
 
 
 def test_debug_visualization_raises_not_ported(tmp_path):
+    """cfg.DEBUG raised "not ported" until utils/vis.py came to the port;
+    now a loop builds with it, holding the synthetic model's triangle-soup
+    faces as train.py builds them."""
     cfg = _tiny_cfg(TCFG.get_cfg_defaults(), tmp_path)
     cfg.DEBUG = True
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TRUN.build_train_loop(cfg, synthetic=True, smoke_verts=48,
-                              device="cpu")
+    loop, _ = TRUN.build_train_loop(cfg, synthetic=True, smoke_verts=48,
+                                    device="cpu")
+    TRUN.close_loaders(loop)
+    idx = np.arange(46)
+    np.testing.assert_array_equal(
+        loop.faces, np.stack([idx, idx + 1, idx + 2], 1)[::7])
+
+
+def test_debug_visualization_writes_mp4(tmp_path):
+    """A 2-window segment with DEBUG on writes the prediction-overlay video
+    (one per segment at DEBUG_FREQ 1) with the frames of the JAX loop's
+    grid: min(8, VIDLEN - seqlen + 1) windows, 224 rows, 224 columns per
+    sample shown (at most 4)."""
+    cv2 = pytest.importorskip("cv2")
+    cfg = _tiny_cfg(TCFG.update_cfg(os.path.join(
+        REPO, "configs", "repr_wopw_3dpw_model.yaml")), tmp_path)
+    cfg.MODEL.TGRU.NUM_LAYERS = 1
+    cfg.MODEL.TGRU.HIDDEN_SIZE = 16
+    cfg.TRAIN.MOT_DISCR.GCN.num_gcn_scales = 2
+    cfg.TRAIN.MOT_DISCR.GCN.num_g3d_scales = 2
+    cfg.TRAIN.PRETRAINED_REGRESSOR = ""
+    cfg.DEBUG = True
+    cfg.DEBUG_FREQ = 1
+    loop, _ = TRUN.build_train_loop(cfg, synthetic=True, smoke_iters=2,
+                                    smoke_verts=48, device="cpu")
+    loop.train_epoch(0, 1)
+    TRUN.close_loaders(loop)
+    videos = sorted(f for f in os.listdir(loop.logdir)
+                    if f.startswith("debug_epoch000_") and f.endswith(".mp4"))
+    assert videos == ["debug_epoch000_step000000.mp4"]
+    cap = cv2.VideoCapture(os.path.join(loop.logdir, videos[0]))
+    frames = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        frames.append(f)
+    cap.release()
+    n = min(4, cfg.TRAIN.BATCH_SIZE - int(cfg.TRAIN.BATCH_SIZE
+                                          * cfg.TRAIN.DATA_2D_RATIO))
+    assert len(frames) == min(8, cfg.DATASET.VIDLEN - S + 1)
+    assert frames[0].shape == (224, 224 * n, 3)
+    assert max(f.max() for f in frames) > 0      # something was drawn
