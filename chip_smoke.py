@@ -99,6 +99,24 @@ Phases, each of which raises on failure (no phase's error is caught):
      within 1e-5, device time, bound). No cv2 is needed: the frames never
      pass through a video file.
 
+ 10. the release tools at full width: (a) and (b) `verify_release`'s
+     self-test on cuda: a reference-layout release fabricated with the
+     port's own fabricators (a 6890-vertex SMPL pkl, full-width TePose and
+     VIBE .pth.tar checkpoints, plain-pickle eval DBs) in a temporary
+     directory under build/chip_smoke_release/, converted by
+     `convert_checkpoint` and `convert_smpl` and evaluated through
+     `evaluate.run_eval` on the three self-test runs, with the LBS count
+     zeroed before and required > 0 after, every metric finite, the
+     paper's gate failing the random weights and the gate checked both
+     ways; then `convert_checkpoint` forward -> --reverse --like ->
+     forward giving equal arrays and the source's tensors back; (c)
+     `utils.profiling.trace` around two windows of phase 8's training step,
+     the trace parsed: kernels per window, the ten kernels with the most
+     device time and the ten host ops whose kernels took most; (d) `counted_flops` on the card (backbone, encoder
+     window, IEF + SMPL) against `model_flops_per_frame`, and the eval
+     rollout at B = 32, T = 128: its FLOPs, time and share of
+     `peak_flops(cuda, float32)`.
+
 Before the last line it prints one JSON line with the kernels' routes,
 launches per path, errors and times; the last line is the ok/device JSON
 object.
@@ -596,6 +614,13 @@ def phase8_train(card: str) -> dict:
     loop.validate()
     val_s = time.perf_counter() - t0
     val_windows = lbs.LAUNCHES // 2
+    # two windows of the same training step, for phase 10's trace
+    amass2 = loop._amass_windows(itd, 2, B)
+
+    def train_two_windows():
+        train_segment(loop.gen, loop.disc, loop.smpl, loop.gen_opt,
+                      loop.disc_opt, hp, loop.weights, b2, b3, amass2,
+                      loop.generator)
     close_loaders(loop)
     res = {"card": card, "train_ms_per_window": 1e3 * med / TRAIN_WINDOWS,
            "samples_windows_per_s": B * TRAIN_WINDOWS / med,
@@ -622,7 +647,7 @@ def phase8_train(card: str) -> dict:
           f"{res['validation_ms_per_window']:.3f} ms/window ({val_windows} "
           f"windows at B=8, one batch) [{card}]")
     print(json.dumps({"train_timings": res}))
-    return {"launches": launches}
+    return {"launches": launches, "train_two_windows": train_two_windows}
 
 
 # phase 9's shapes: the demo clip, SMPLify's tracklet length and a long
@@ -974,6 +999,192 @@ def phase9_demo(card: str) -> dict:
             "lbs": res["lbs"]}
 
 
+RELEASE_DIR = os.path.join(REPO, "build", "chip_smoke_release")
+MFU_B, MFU_T = 32, 128      # the eval rollout at the 3dpw batch
+
+
+def eval_rollout_flops(B: int, T: int, S: int, V: int) -> float:
+    """Analytic FLOPs of `eval_rollout` over B videos of T frames (2 x 1024
+    GRUs, 2048-d features): per window the TePose encoder, IEF, the
+    predicted and the ground-truth SMPL; once per video the causal VIBE
+    bootstrap over S frames and the bootstrap frames' ground-truth SMPL."""
+    from tepose_tpu_torch.utils import flops as F
+
+    W = T - S + 1
+    window = (F.encoder_window_flops(S, 2, 1024) + F.regressor_ief_flops()
+              + 2 * F.smpl_flops(V))
+    vibe = (F.gru_flops(S, 2048, 1024, 2, False) + S * 2 * 1024 * 2048
+            + S * (F.regressor_ief_flops() + F.smpl_flops(V)))
+    return float(B * (W * window + vibe + (S - 1) * F.smpl_flops(V)))
+
+
+def phase10_release(card: str, p5: dict, p8: dict) -> dict:
+    import shutil
+    import tempfile
+
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from tepose_tpu_torch import verify_release as VR
+    from tepose_tpu_torch.convert_checkpoint import (
+        convert_forward, convert_reverse)
+    from tepose_tpu_torch.eval.evaluator import eval_rollout
+    from tepose_tpu_torch.evaluate import synthetic_j_regressor
+    from tepose_tpu_torch.streaming.engine import device_scope
+    from tepose_tpu_torch.utils import flops as F
+    from tepose_tpu_torch.utils.profiling import trace
+    from tepose_tpu_torch.weights import flatten_tree, load_checkpoint
+
+    res = {"card": card}
+    shutil.rmtree(RELEASE_DIR, ignore_errors=True)
+    os.makedirs(RELEASE_DIR)
+    with tempfile.TemporaryDirectory(dir=RELEASE_DIR) as tmp:
+        # (a) + (b): fabricate a full-size release with the port's own
+        # fabricators, convert it and verify it on the card
+        lbs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        report = VR.self_test("cuda", VR.SELFTEST_KEYS, workdir=tmp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lbs.LAUNCHES
+        if launches <= 0:
+            raise RuntimeError("verify_release never launched the lbs kernel")
+        if set(report["runs"]) != set(VR.SELFTEST_KEYS):
+            raise RuntimeError(f"verify_release ran {sorted(report['runs'])}")
+        pa = {}
+        for key, rr in report["runs"].items():
+            vals = [r["measured"] for r in rr["metrics"].values()]
+            if not all(v is not None and np.isfinite(v) for v in vals):
+                raise RuntimeError(f"verify_release {key}: non-finite "
+                                   f"metrics {rr['metrics']}")
+            pa[key] = rr["metrics"]["pa_mpjpe"]["measured"]
+        res.update(verify_wall_s=wall, verify_launches=launches,
+                   pa_mpjpe_mm=pa, eval_s={k: r["raw"]["seconds"] for k, r
+                                           in report["runs"].items()})
+        print(f"phase 10b: verify_release self-test on cuda ({len(pa)} runs, "
+              f"6890-vertex SMPL, full-width TePose and VIBE, plain-pickle "
+              f"DBs): PA-MPJPE mm " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in pa.items())
+              + f"; all metrics finite, random weights fail the paper gate; "
+              f"lbs launches {launches} (the CUDA kernel); wall "
+              f"{wall:.2f} s with fabrication and conversion, eval loops "
+              + ", ".join(f"{v:.3f}" for v in res["eval_s"].values())
+              + f" s [{card}]")
+
+        # (a) --reverse then forward again gives the same arrays
+        fab = os.path.join(tmp, "fabricated")
+        src = os.path.join(fab, VR._ckpt_npz_name(
+            VR.SELFTEST_KEYS[0].split(":")[1]).replace(".npz", ".pth.tar"))
+        npz1, pth, npz2 = (os.path.join(tmp, n) for n in (
+            "rt1.npz", "rt.pth.tar", "rt2.npz"))
+        convert_forward(src, npz1, "tepose")
+        convert_reverse(npz1, pth, like=src)
+        convert_forward(pth, npz2, "tepose")
+        a, b = (flatten_tree(load_checkpoint(p)[0]) for p in (npz1, npz2))
+        if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                           for k in a):
+            raise RuntimeError("--reverse then forward changed the arrays")
+        srcsd = torch.load(src, weights_only=False)["gen_state_dict"]
+        back = torch.load(pth, weights_only=False)["gen_state_dict"]
+        if srcsd.keys() != back.keys() or not all(
+                torch.equal(srcsd[k], back[k]) for k in srcsd):
+            raise RuntimeError("--reverse did not give back the source's "
+                               "tensors")
+        print(f"phase 10a: convert_checkpoint forward -> --reverse --like -> "
+              f"forward on {os.path.basename(src)}: {len(a)} arrays equal, "
+              f"{len(srcsd)} source tensors given back exactly")
+
+    # (c) the training step's kernels, attributed
+    with trace(os.path.join(RELEASE_DIR, "profile"), "cuda") as tr:
+        p8["train_two_windows"]()
+    with open(tr.path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name: dict = {}
+    n_kernels = 0
+    for e in events:
+        if e.get("cat") == "kernel":
+            n_kernels += 1
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0)
+    if not n_kernels:
+        raise RuntimeError(f"the trace {tr.path} holds no kernel")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    busy_us = sum(by_name.values())
+    # the host ops that launched them: each aten op's own kernels' device
+    # time (the averages also list the kernels and annotations themselves)
+    ops = sorted((a for a in tr.profiler.key_averages()
+                  if a.device_type == torch.autograd.DeviceType.CPU
+                  and not getattr(a, "is_user_annotation", False)),
+                 key=lambda a: -a.self_device_time_total)[:10]
+    res.update(train_trace_kernels_per_window=n_kernels / 2,
+               train_trace_kernel_us_per_window=busy_us / 2,
+               train_trace_top10_us=[(n[:200], t) for n, t in top],
+               train_trace_top10_ops_us=[
+                   (a.key, a.self_device_time_total, a.count) for a in ops])
+    print(f"phase 10c: trace of 2 training windows (batch 32, full width) "
+          f"-> {os.path.relpath(tr.path, REPO)}: {n_kernels} kernels "
+          f"({n_kernels / 2:.1f} a window), {busy_us / 2e3:.3f} ms of "
+          f"kernel time a window; top 10 by device time: " + "; ".join(
+              f"{n[:70]} {t:.1f} us" for n, t in top) + "; top 10 host ops "
+          "by their kernels' device time (us, calls): " + "; ".join(
+              f"{a.key} {a.self_device_time_total:.1f} {a.count}"
+              for a in ops) + f" [{card}]")
+
+    # (d) FLOPs counted on the card against the formulas, and the eval
+    # rollout's achieved rate
+    setup = p5["setup"]
+    gen, vibe, smpl, bb = (setup[k] for k in ("gen", "vibe", "smpl",
+                                              "backbone"))
+    dev, S, V = smpl.v_template.device, gen.cfg.seqlen, smpl.num_verts
+    rs = np.random.RandomState(10)
+    parts = F.model_flops_per_frame(S, 2, 1024, V)
+    with device_scope():
+        counted = {
+            "backbone": F.counted_flops(bb, torch.zeros(1, 3, 224, 224,
+                                                        device=dev)),
+            "encoder_window": F.counted_flops(
+                gen.encoder, torch.zeros(1, S, 2048 + 85, device=dev)),
+            "ief+smpl": F.counted_flops(
+                gen.regressor, torch.zeros(1, 2048, device=dev), smpl)}
+    analytic = {"backbone": parts["backbone"],
+                "encoder_window": parts["encoder_window"],
+                "ief+smpl": parts["ief"] + parts["smpl"]}
+    res.update(counted_flops=counted, analytic_flops=analytic)
+    print("phase 10d: FLOPs per frame counted on cuda (FlopCounterMode, "
+          "cuDNN GRU mapped) / analytic: " + ", ".join(
+              f"{k} {counted[k]:.4e} / {analytic[k]:.4e} "
+              f"({counted[k] / analytic[k]:.3f})" for k in analytic))
+    feats = torch.from_numpy(rs.randn(MFU_B, MFU_T, 2048).astype(np.float32)
+                             * 0.5).to(dev)
+    pseu = torch.zeros(MFU_B, S - 1, 85, device=dev)
+    pseu[..., 0] = 1.0
+    gt = torch.from_numpy(rs.randn(MFU_B, MFU_T, 85).astype(np.float32)
+                          * 0.2).to(dev)
+    jreg = torch.as_tensor(synthetic_j_regressor(V), device=dev)
+    W = MFU_T - S + 1
+
+    def rollout():
+        with device_scope():
+            eval_rollout(gen, vibe, smpl, feats, pseu, gt, jreg, W)
+
+    secs = host_seconds(rollout, reps=3)
+    flops_analytic = eval_rollout_flops(MFU_B, MFU_T, S, V)
+    flops_counted = F.counted_flops(rollout)
+    peak = F.peak_flops(dev, torch.float32)
+    rate = flops_analytic / float(np.median(secs))
+    res.update(eval_rollout_s=secs, eval_flops_analytic=flops_analytic,
+               eval_flops_counted=flops_counted, eval_flops_per_s=rate,
+               peak_fp32_flops=peak,
+               eval_share_of_fp32_peak=None if peak is None else rate / peak)
+    share = ("no peak entry for this card" if peak is None
+             else f"{rate / peak:.4%} of the {peak:.3e} FLOP/s fp32 peak")
+    print(f"phase 10d: eval rollout B={MFU_B} T={MFU_T} ({W} windows, "
+          f"2x1024, V={V}, strict fp32): {flops_analytic:.4e} FLOPs "
+          f"(analytic; counted on cuda {flops_counted:.4e}) in "
+          f"{np.median(secs):.4f} s (median of "
+          f"{[round(x, 4) for x in secs]} s, host clock to a synchronise) = "
+          f"{rate:.4e} FLOP/s, {share} [{card}]")
+    print(json.dumps({"release_tools": res}))
+    return {"launches": launches}
+
+
 def main() -> None:
     card = phase0_device()
     sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
@@ -986,11 +1197,12 @@ def main() -> None:
     phase7_timings(p5, card)
     p8 = phase8_train(card)
     p9 = phase9_demo(card)
+    p10 = phase10_release(card, p5, p8)
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
     by_path = {"eval": sl["launches"], "engine": p5["launches"],
                "live": p6["launches"], "train_validation": p8["launches"],
-               **p9["launches"]}
+               **p9["launches"], "verify_release": p10["launches"]}
     for B, r in p9["lbs"].items():
         kern["device_ms"][B], kern["plain_ms"][B] = r["ms"], r["plain_ms"]
         kern["bound"][B] = (r["bound_ms"], r["bound_by"])

@@ -12,7 +12,8 @@ equal to them by tests/test_torch_train_loop.py. Items match the batch spec
            kp_2d (VIDLEN, 49, 3), switch_id (2, VIDLEN), vidlen_each ()
   AMASS item: theta (seqlen, 85)
 
-Numpy only; `h5py` and `joblib` are imported only to read a DB file.
+Numpy only; `h5py` is imported only to read Insta's HDF5 file, and the
+joblib DBs are read without joblib (`data.db.read_joblib`).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from tepose_tpu_torch.data.chunking import (
     combine_into_chunks, pack_clip_channels, split_into_videos,
     split_into_videos_val)
 from tepose_tpu_torch.data.db import (
-    load_db, load_pseudotheta, train_db_paths)
+    load_db, load_pseudotheta, read_joblib, train_db_paths)
 from tepose_tpu_torch.data.transforms import normalize_2d_kp, transform_keypoints
 
 DUMMY_CAM = np.array([1.0, 0.0, 0.0], np.float32)
@@ -254,7 +255,6 @@ class Insta(Dataset2D):
             import os.path as osp
 
             import h5py
-            import joblib
 
             from tepose_tpu_torch.config import TePose_DB_DIR
             path = h5_path or osp.join(TePose_DB_DIR, "insta_train_db.h5")
@@ -269,12 +269,12 @@ class Insta(Dataset2D):
             # (ref: pseudo_theta.py writes insta_train_pseudotheta.pt);
             # only look for the sidecar when the path follows the *_db.h5
             # convention — replace() on any other name is a no-op and would
-            # joblib.load the h5 file itself
+            # read the h5 file itself
             pse_path = (path[:-len("_db.h5")] + "_pseudotheta.pt"
                         if path.endswith("_db.h5") else None)
             if psetheta is None:
                 if pse_path and osp.isfile(pse_path):
-                    psetheta = joblib.load(pse_path)
+                    psetheta = read_joblib(pse_path)
                 elif "theta_pseu" in f:
                     psetheta = np.asarray(f["theta_pseu"])
                 else:

@@ -2,15 +2,16 @@
 
 A copy of `tepose_tpu/data/db.py` (`train_db_paths`, `eval_db_paths`,
 `load_db`, `load_pseudotheta`, `key_eval_db_by_video`), pinned equal to it
-by tests/test_torch_eval.py and tests/test_torch_train_loop.py. The DBs
-are plain joblib pickles of numpy arrays; joblib is imported only to read
-one, so synthetic runs do not need it.
+by tests/test_torch_eval.py and tests/test_torch_train_loop.py, except that
+the files are read by `read_joblib`, which needs no joblib: the DBs and
+pseudo-thetas are uncompressed joblib dumps of numpy arrays.
 """
 
 from __future__ import annotations
 
 import os.path as osp
-from typing import Dict, Optional
+import pickle
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -74,23 +75,99 @@ def eval_db_paths(dataset: str, title: str, render: bool = False,
     return osp.join(d, f"{stem}_db.pt"), osp.join(d, f"{stem}_pseudotheta.pt")
 
 
+# magic numbers of joblib's compressed formats (joblib/compressor.py)
+_COMPRESSED_MAGIC = {b"ZF": "joblib < 0.10 zfile", b"\x78": "zlib",
+                     b"\x1f\x8b": "gzip", b"BZ": "bz2",
+                     b"\xfd\x37\x7a\x58\x5a": "xz", b"\x5d\x00": "lzma",
+                     b"\x04\x22\x4d\x18": "lz4"}
+
+
+class _ArrayHeader:
+    """Unpickled in place of joblib's `NumpyArrayWrapper`: the shape,
+    order and dtype of the array whose bytes follow it in the file."""
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+
+class _JoblibUnpickler(pickle._Unpickler):
+    """joblib's uncompressed format is a pickle in which each numpy array is
+    a `NumpyArrayWrapper` object followed, after its BUILD opcode, by the
+    array's raw bytes (plain dtypes: one pad-length byte, that much
+    padding when `numpy_array_alignment_bytes` is set, then the elements in
+    the wrapper's `order`) or by a nested pickle (object dtypes). BUILD
+    replaces the header on the stack with the array read from the file."""
+
+    dispatch = pickle._Unpickler.dispatch.copy()
+
+    def __init__(self, f, name: str):
+        super().__init__(f)
+        self._f, self._name = f, name
+
+    def find_class(self, module, name):
+        if module.split(".")[0] == "joblib":
+            if name == "NumpyArrayWrapper":
+                return _ArrayHeader
+            raise ValueError(f"{self._name}: joblib object {module}.{name} "
+                             "is not readable without joblib")
+        return super().find_class(module, name)
+
+    def _read_array(self, h: _ArrayHeader) -> np.ndarray:
+        dtype = np.dtype(h.dtype)
+        if dtype.hasobject:
+            arr = pickle.load(self._f)
+        else:
+            if getattr(h, "numpy_array_alignment_bytes", None) is not None:
+                pad = self._f.read(1)
+                self._f.read(pad[0] if pad else 0)
+            count = int(np.prod(h.shape, dtype=np.int64))
+            buf = bytearray(count * dtype.itemsize)
+            if self._f.readinto(buf) != len(buf):
+                raise EOFError(f"{self._name}: truncated array data")
+            arr = np.frombuffer(buf, dtype, count)
+            arr = (arr.reshape(h.shape[::-1]).T if h.order == "F"
+                   else arr.reshape(h.shape))
+        if not arr.dtype.isnative:
+            arr = arr.astype(arr.dtype.newbyteorder("="))
+        return arr
+
+    def load_build(self):
+        super().load_build()
+        if isinstance(self.stack[-1], _ArrayHeader):
+            self.stack[-1] = self._read_array(self.stack[-1])
+
+    dispatch[pickle.BUILD[0]] = load_build
+
+
+def read_joblib(path: str) -> Any:
+    """What `joblib.load(path)` returns for an uncompressed joblib dump or a
+    plain pickle, read without joblib. A compressed dump raises."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+        for magic, kind in _COMPRESSED_MAGIC.items():
+            if head.startswith(magic):
+                raise ValueError(
+                    f"{path} is a {kind}-compressed joblib file; the port "
+                    "reads uncompressed dumps only: rewrite it with "
+                    "joblib.dump(joblib.load(path), path) where joblib is "
+                    "installed")
+        f.seek(0)
+        return _JoblibUnpickler(f, path).load()
+
+
 def load_db(db_file: str) -> Dict[str, np.ndarray]:
     if not osp.isfile(db_file):
         raise FileNotFoundError(f"{db_file} does not exist — run the "
                                 "preprocessing tools (tools/preprocess) or "
                                 "point TEPOSE_DB_DIR at your DB directory")
-    import joblib
-
-    return joblib.load(db_file)
+    return read_joblib(db_file)
 
 
 def load_pseudotheta(pse_file: str) -> np.ndarray:
     if not osp.isfile(pse_file):
         raise FileNotFoundError(f"{pse_file} does not exist — generate it "
                                 "with tools/pseudo_theta.py")
-    import joblib
-
-    return joblib.load(pse_file)
+    return read_joblib(pse_file)
 
 
 def key_eval_db_by_video(db: Dict[str, np.ndarray], psetheta: np.ndarray,

@@ -20,8 +20,9 @@ smoothing) and the rendering on decoded frames and returns the results
 and rendered frames, and `main` decodes, calls both and writes. Only
 decoding, the motion detectors, --wireframe, --display, the video writer
 and --save_pkl need OpenCV or joblib, imported where they are used.
-The models run on `cuda:<gpu>` unless `--gpu cpu`. `--profile` belongs
-with the port's profiling and raises.
+The models run on `cuda:<gpu>` unless `--gpu cpu`. `--profile DIR`
+records the whole run with `torch.profiler` (`utils.profiling.trace`) and
+writes the trace into DIR.
 """
 
 from __future__ import annotations
@@ -96,8 +97,8 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", action="store_true",
                    help="smoke-run on a generated video with random weights")
     p.add_argument("--profile", type=str, default="",
-                   help="not ported: a device trace goes with the port's "
-                        "profiling")
+                   help="record a torch.profiler trace of the run into this "
+                        "directory")
     p.add_argument("--live", action="store_true",
                    help="frame-at-a-time causal mode: pose for frame t is "
                         "computed (and rendered) the moment frame t arrives. "
@@ -155,7 +156,7 @@ def build_demo_models(args) -> DemoModels:
     from tepose_tpu_torch.weights import (
         load_checkpoint, state_dict_from_jax_tree)
 
-    device = "cpu" if args.gpu == "cpu" else f"cuda:{int(args.gpu)}"
+    device = demo_device(args)
     mcfg = TePoseConfig(seqlen=6, n_layers=2, hidden_size=1024)
     vcfg = VibeConfig(seqlen=16, n_layers=2, hidden_size=1024,
                       add_linear=True)
@@ -168,7 +169,8 @@ def build_demo_models(args) -> DemoModels:
         faces = hull_faces(smpl)
     else:
         sys.exit(f"{smpl_npz} missing — convert your SMPL model with "
-                 "tools/convert_smpl.py (or --synthetic to smoke-run)")
+                 "python -m tepose_tpu_torch.convert_smpl (or --synthetic "
+                 "to smoke-run)")
 
     gen = TePose(mcfg, generator=torch.Generator().manual_seed(0),
                  device=device)
@@ -183,7 +185,10 @@ def build_demo_models(args) -> DemoModels:
         vibe_npz = osp.join(BASE_DATA_DIR, "vibe_wo_3dpw.npz")
         for pth in (spin_npz, vibe_npz):
             if not osp.isfile(pth):
-                sys.exit(f"{pth} missing — run tools/convert_checkpoint.py")
+                sys.exit(f"{pth} missing — convert the released SPIN and "
+                         "VIBE checkpoints with python -m "
+                         "tepose_tpu_torch.convert_checkpoint --kind "
+                         "spin|vibe")
         gen.load_state_dict(state_dict_from_jax_tree(
             load_checkpoint(args.model)[0]["gen"]))
         vibe.load_state_dict(state_dict_from_jax_tree(
@@ -639,11 +644,21 @@ def run_live(args, crop_size: int = 224):
             "out_path": out_path}
 
 
+def demo_device(args) -> str:
+    return "cpu" if args.gpu == "cpu" else f"cuda:{int(args.gpu)}"
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.profile:
-        raise SystemExit("--profile is not ported to tepose_tpu_torch yet; "
-                         "a device trace goes with the port's profiling")
+    if not args.profile:
+        return _main(args)
+    from tepose_tpu_torch.utils.profiling import trace
+
+    with trace(args.profile, demo_device(args)):
+        return _main(args)
+
+
+def _main(args):
     if args.serving == "serving-joints":
         # joints-only serving computes no meshes at all
         blocked = [f for f in ("save_obj", "wireframe", "sideview",

@@ -72,7 +72,8 @@ def build_models(cfg, synthetic: bool, device: torch.device | str):
     else:
         raise FileNotFoundError(
             f"{smpl_npz} not found — convert your licensed SMPL pkl with "
-            "tools/convert_smpl.py (or pass --synthetic for a smoke run)")
+            "python -m tepose_tpu_torch.convert_smpl (or pass --synthetic "
+            "for a smoke run)")
 
     gen = TePose(mcfg, generator=torch.Generator().manual_seed(0),
                  device=device)
@@ -91,7 +92,8 @@ def build_models(cfg, synthetic: bool, device: torch.device | str):
         if not osp.isfile(vibe_npz):
             raise FileNotFoundError(
                 f"{vibe_npz} not found — convert the released VIBE "
-                "checkpoint with tools/convert_checkpoint.py --kind vibe")
+                "checkpoint with python -m "
+                "tepose_tpu_torch.convert_checkpoint --kind vibe")
         vibe.load_state_dict(
             state_dict_from_jax_tree(load_checkpoint(vibe_npz)[0]["gen"]))
     gen.eval()

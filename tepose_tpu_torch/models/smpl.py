@@ -156,7 +156,7 @@ class SmplModel(nn.Module):
 
 def load_smpl_assets(npz_path: str, device: torch.device | str,
                      allow_missing_extra: bool = False) -> SmplModel:
-    """Load a converted SMPL `.npz` (see tools/convert_smpl.py).
+    """Load a converted SMPL `.npz` (see `tepose_tpu_torch.convert_smpl`).
 
     The extra-joint regressor is required unless `allow_missing_extra`:
     without it joints 45-53 of the 49-joint output would silently be zeros.
@@ -169,7 +169,8 @@ def load_smpl_assets(npz_path: str, device: torch.device | str,
         else:
             raise KeyError(
                 f"{npz_path} has no 'j_regressor_extra' — re-run "
-                "tools/convert_smpl.py with --j-regressor-extra "
+                "python -m tepose_tpu_torch.convert_smpl with "
+                "--j-regressor-extra "
                 "J_regressor_extra.npy; without it joints 45-53 of the "
                 "49-joint output are zeros. Pass allow_missing_extra=True to "
                 "load anyway.")

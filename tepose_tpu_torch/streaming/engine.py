@@ -101,8 +101,11 @@ def upload(a, device: torch.device) -> torch.Tensor:
 
 
 def check_device(device: torch.device, **modules) -> None:
-    """Raise unless every tensor of every module lies on `device`."""
+    """Raise unless every tensor of every module lies on `device`; a module
+    given as None is skipped."""
     for name, m in modules.items():
+        if m is None:
+            continue
         devs = {t.device for t in list(m.parameters()) + list(m.buffers())}
         if devs - {device}:
             raise ValueError(f"{name} has tensors on {sorted(map(str, devs))}"
@@ -137,11 +140,12 @@ class StreamingEngine:
 
     smpl, tepose, vibe and backbone must lie on one device, which the
     engine runs on. tracklets are numpy arrays and results come back as
-    numpy arrays.
+    numpy arrays. With `backbone=None` the engine serves precomputed
+    features only (`run_tracklet(s)`); the crop entry points then raise.
     """
 
     def __init__(self, smpl: SmplModel, tepose: TePose, vibe: Vibe,
-                 backbone: ResNet50, crop_batch: int = 128,
+                 backbone: Optional[ResNet50], crop_batch: int = 128,
                  window_bucket: int = 64, max_frames_per_call: int = 4096,
                  backbone_dtype: Optional[torch.dtype] = None, mesh=None,
                  outputs: Sequence[str] = ENGINE_OUTPUTS,
@@ -173,7 +177,8 @@ class StreamingEngine:
         # bounds one upload and one bucket's frames (~600 MB of u8 crops)
         self.max_frames_per_call = max_frames_per_call
         self.backbone_dtype = backbone_dtype
-        self.backbone = to_serving_layout(backbone, backbone_dtype)
+        self.backbone = (None if backbone is None
+                         else to_serving_layout(backbone, backbone_dtype))
         self.outputs = tuple(outputs)
         # float16 halves every output's bytes but theta's, which stays
         # float32 (it is the feedback signal and the pose parameters)
@@ -192,6 +197,13 @@ class StreamingEngine:
 
     # ------------------------------------------------------------ features
 
+    def _require_backbone(self) -> None:
+        if self.backbone is None:
+            raise ValueError(
+                "this StreamingEngine was built with backbone=None: it "
+                "serves precomputed features (run_tracklet/run_tracklets); "
+                "pass a ResNet50 to run crops")
+
     def _features(self, crops: torch.Tensor) -> torch.Tensor:
         """Backbone over device crops (N, 3, H, W), crop_batch at a time."""
         B = self.crop_batch
@@ -208,6 +220,7 @@ class StreamingEngine:
                                ) -> List[np.ndarray]:
         """Features of several tracklets' crops, uploaded and run together
         in super-chunks of at most `max_frames_per_call` frames."""
+        self._require_backbone()
         with self.timers.stage("features"):
             if not crops_list:
                 return []
@@ -335,6 +348,7 @@ class StreamingEngine:
         takes the two-stage path (super-chunked `extract_features_multi`,
         then `run_tracklets`), bounding memory on long videos.
         """
+        self._require_backbone()
         _check_same_dtype(crops_list)
 
         def dispatch(idxs, T_pad, B_pad, pseu):

@@ -101,10 +101,8 @@ class LiveSession:
             raise ValueError("live mode needs a causal (unidirectional) "
                              "VIBE bootstrap")
         self.device = smpl.v_template.device
-        modules = dict(tepose=tepose, vibe=vibe)
-        if backbone is not None:
-            modules["backbone"] = backbone
-        check_device(self.device, **modules)
+        check_device(self.device, tepose=tepose, vibe=vibe,
+                     backbone=backbone)
         self.smpl, self.tepose, self.vibe = smpl, tepose, vibe
         self.model_cfg, self.vibe_cfg = tepose.cfg, vibe.cfg
         self.n_streams = n_streams

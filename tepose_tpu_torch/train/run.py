@@ -12,14 +12,16 @@ motion discriminator from seed 1, the regressor warm-started from
 `TRAIN.PRETRAINED_REGRESSOR` when that file exists, the loaders (synthetic
 DBs with `--synthetic`), both optimizers, and `train.fit.TrainLoop.fit`.
 Matmuls and cuDNN run in strict float32; `--precision` accepts `float32`
-only. `--devices` and `--profile` are not ported and raise. With
-`cfg.DEBUG` the loop writes prediction-overlay videos, drawing the mesh
-with the SMPL assets' faces, or for the synthetic model a triangle soup
-over its vertices, as `train.py` does.
+only. `--profile DIR` records `loop.fit` with `torch.profiler`
+(`utils.profiling.trace`) into DIR. `--devices` is not ported and raises.
+With `cfg.DEBUG` the loop writes prediction-overlay videos, drawing the
+mesh with the SMPL assets' faces, or for the synthetic model a triangle
+soup over its vertices, as `train.py` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os.path as osp
 import sys
 from typing import Optional
@@ -29,7 +31,7 @@ import torch
 
 from tepose_tpu_torch.evaluate import strict_f32, synthetic_j_regressor
 
-UNPORTED_FLAGS = ("--devices", "--profile")
+UNPORTED_FLAGS = ("--devices",)
 
 
 def build_train_loop(cfg, *, synthetic: bool = False,
@@ -78,7 +80,8 @@ def build_train_loop(cfg, *, synthetic: bool = False,
         idx = np.arange(smpl.num_verts - 2)
         faces = np.stack([idx, idx + 1, idx + 2], axis=1)[::7].astype(np.int32)
     else:
-        raise FileNotFoundError(f"{smpl_npz} missing — see tools/convert_smpl")
+        raise FileNotFoundError(f"{smpl_npz} missing — convert it with python "
+                                "-m tepose_tpu_torch.convert_smpl")
 
     gen = TePose(model_cfg, generator=torch.Generator().manual_seed(0),
                  device=device)
@@ -137,12 +140,17 @@ def close_loaders(loop) -> None:
         loader.close()
 
 
-def run_train(cfg, **kw):
+def run_train(cfg, profile: Optional[str] = None, **kw):
     """Train `cfg.TRAIN.START_EPOCH`..`END_EPOCH` (see `build_train_loop`
-    for the options); returns the finished `TrainLoop`."""
+    for the options), under a `torch.profiler` trace written into
+    `profile` when it is given; returns the finished `TrainLoop`."""
+    from tepose_tpu_torch.utils.profiling import trace
+
     loop, num_outer = build_train_loop(cfg, **kw)
     try:
-        loop.fit(cfg.TRAIN.END_EPOCH, num_outer)
+        with (trace(profile, kw.get("device", "cuda")) if profile
+              else contextlib.nullcontext()):
+            loop.fit(cfg.TRAIN.END_EPOCH, num_outer)
     finally:
         close_loaders(loop)
     return loop
@@ -163,6 +171,7 @@ def _take(flag: str, cast=str):
 def main():
     from tepose_tpu_torch.config import parse_args
 
+    profile = _take("--profile")
     for flag in UNPORTED_FLAGS:
         if flag in sys.argv:
             raise SystemExit(f"{flag} is not ported to tepose_tpu_torch; "
@@ -182,6 +191,6 @@ def main():
         del sys.argv[i:i + 2]
     cfg, cfg_file, args = parse_args()
     device = "cpu" if args.gpu == "cpu" else f"cuda:{int(args.gpu)}"
-    return run_train(cfg, synthetic=synthetic, smoke_iters=smoke_iters,
-                     smoke_verts=smoke_verts, device=device,
-                     cfg_file=cfg_file)
+    return run_train(cfg, profile=profile, synthetic=synthetic,
+                     smoke_iters=smoke_iters, smoke_verts=smoke_verts,
+                     device=device, cfg_file=cfg_file)

@@ -1,18 +1,59 @@
-"""Per-stage wall timing for the serving pipeline, and the training loop's
-non-finite-loss guard.
+"""Device traces, per-stage wall timing for the serving pipeline, and the
+training loop's non-finite-loss guard.
 
-`StageTimer` and `NaNGuard` are copies of their namesakes in
-`tepose_tpu/utils/profiling.py` (host-only classes; importing the original
-would import JAX), pinned equal to them by tests/test_torch_serve.py and
-tests/test_torch_train_loop.py.
+`trace` is the port of `tepose_tpu/utils/profiling.py::trace` onto
+`torch.profiler` (`--profile DIR` of the demo and training CLIs).
+`StageTimer` and `NaNGuard` are copies of their namesakes there (host-only
+classes; importing the original would import JAX), pinned equal to them by
+tests/test_torch_serve.py and tests/test_torch_train_loop.py.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
+from types import SimpleNamespace
 from typing import Dict, Iterator, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str, device: torch.device | str = "cpu"
+          ) -> Iterator[SimpleNamespace]:
+    """Record the enclosed code with `torch.profiler`: host activity and,
+    when `device` is a CUDA device, the card's kernels and copies.
+
+    On exit the trace is written to `<logdir>/<time>_<pid>.pt.trace.json`
+    (Chrome/Perfetto JSON, which TensorBoard's profiler plugin also reads).
+    Yields a namespace whose `path` is that file and whose `profiler` is the
+    `torch.profiler.profile` object. On a CUDA device the work is
+    synchronised before the profiler stops, and a trace without any CUDA
+    event raises: a CPU-only trace of a card run would hide the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    os.makedirs(logdir, exist_ok=True)
+    out = SimpleNamespace(path=os.path.join(
+        logdir, f"{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}"
+        ".pt.trace.json"), profiler=None)
+    with profile(activities=activities) as prof:
+        out.profiler = prof
+        yield out
+        if cuda:
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(out.path)
+    print(f"Saved the profiler trace to {out.path}")
+    if cuda and not any(e.device_type == DeviceType.CUDA
+                        for e in prof.events()):
+        raise RuntimeError(f"torch.profiler recorded no CUDA activity on "
+                           f"{device} ({out.path}): device tracing (CUPTI) "
+                           "is unavailable")
 
 
 class StageTimer:

@@ -320,3 +320,41 @@ def test_train_validation_on_cuda_matches_cpu(cuda):
     for k in ("pred_j3d", "pve"):
         np.testing.assert_allclose(outs[1][k].cpu().numpy(),
                                    outs[0][k].numpy(), atol=1e-4, rtol=0)
+
+
+def test_trace_records_the_card(cuda, tmp_path):
+    """utils.profiling.trace on cuda writes a Chrome trace holding the LBS
+    kernel's launch as a device kernel event."""
+    from tepose_tpu_torch.utils.profiling import trace
+
+    wT, A, v = _inputs(6890, 8, cuda)
+    with trace(str(tmp_path), cuda) as t:
+        LS.lbs_skinning(wT, A, v)
+    import json
+
+    with open(t.path) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    assert any("lbs_skin" in n for n in kernels), kernels[:10]
+
+
+def test_counted_flops_counts_the_cudnn_gru(cuda):
+    """cuDNN's fused GRU is counted through the `_cudnn_rnn` mapping, as
+    the GRU formula gives it."""
+    from tepose_tpu_torch.utils import flops as F
+
+    T, B, IN, H, NL = 6, 4, 2133, 64, 2
+    for bidir in (False, True):
+        gru = torch.nn.GRU(IN, H, NL, bidirectional=bidir).to(cuda)
+        with torch.no_grad():
+            got = F.counted_flops(gru, torch.zeros(T, B, IN, device=cuda))
+        assert got == B * F.gru_flops(T, IN, H, NL, bidir)
+
+
+def test_peak_flops_on_the_card(cuda):
+    from tepose_tpu_torch.utils import flops as F
+
+    name = torch.cuda.get_device_name(cuda)
+    assert F.peak_flops(cuda) == F.peak_flops_for(name)
+    if name.startswith("NVIDIA H100"):
+        assert F.peak_flops(cuda, torch.bfloat16) > F.peak_flops(cuda)

@@ -296,9 +296,14 @@ def test_demo_live_matches_jax(shared, monkeypatch, tmp_path, streams):
                   for k in ("port", "jax")))
 
 
-def test_demo_refuses_profile_and_joints_only_meshes():
-    with pytest.raises(SystemExit, match="--profile is not ported"):
-        port_demo.main(["--synthetic", "--profile", "trace"])
+def test_demo_refuses_profile_and_joints_only_meshes(tmp_path):
+    """--profile was refused until the port had `utils.profiling.trace`;
+    now the demo parses it and runs under the trace, where joints-only
+    serving still refuses mesh outputs."""
+    with pytest.raises(SystemExit, match="serving-joints"):
+        port_demo.main(["--synthetic", "--gpu", "cpu", "--profile",
+                        str(tmp_path / "trace"), "--serving",
+                        "serving-joints", "--sideview"])
     with pytest.raises(SystemExit, match="serving-joints"):
         port_demo.main(["--synthetic", "--serving", "serving-joints",
                         "--sideview"])

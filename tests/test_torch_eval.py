@@ -316,8 +316,8 @@ def test_main_rejects_unported_options(monkeypatch, argv, match):
 
 def test_never_imports_jax():
     """Every port module and chip_smoke import without JAX, with the demo's
-    optional host libraries present and with them blocked (the GPU host
-    has no cv2, matplotlib or joblib)."""
+    optional host libraries present and with them, JAX and the JAX package
+    blocked (the GPU host has no JAX, cv2, matplotlib or joblib)."""
     code = (
         "import sys\n"
         "for name in sys.argv[1:]:\n"
@@ -327,15 +327,19 @@ def test_never_imports_jax():
         " 'tepose_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'jaxlib', 'tepose_tpu.')) or m == 'tepose_tpu')\n"
+        "bad = sorted(m for m in sys.modules if (m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'tepose_tpu.')) or m == 'tepose_tpu')"
+        " and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"
         "for m in ('evaluate', 'demo', 'native', 'streaming.tracker',\n"
-        "          'utils.vis', 'models.smplify'):\n"
+        "          'utils.vis', 'models.smplify', 'convert_checkpoint',\n"
+        "          'convert_smpl', 'verify_release', 'utils.flops',\n"
+        "          'utils.profiling'):\n"
         "    assert 'tepose_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    for blocked in ([], ["cv2", "matplotlib", "joblib"]):
+    for blocked in ([], ["cv2", "matplotlib", "joblib", "jax", "jaxlib",
+                         "tepose_tpu"]):
         proc = subprocess.run([sys.executable, "-c", code, *blocked],
                               cwd=REPO, env=env, capture_output=True,
                               text=True, timeout=120)

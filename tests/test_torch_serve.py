@@ -216,6 +216,25 @@ def test_presets(m):
         None, None, ("theta", "verts"))
 
 
+def test_features_only_engine_matches_jax(m):
+    """backbone=None serves features, as the JAX engine with
+    backbone_params=None does: one 14-frame tracklet, window_bucket 16;
+    the crop entry points raise, naming the missing backbone."""
+    want = JaxEngine(m["jsmpl"], m["jgen"], m["jvibe"], None, m["jcfg"],
+                     m["jvcfg"], window_bucket=16).run_tracklets(
+                         m["feats"][:1])
+    eng = StreamingEngine(m["smpl"], m["gen"], m["vibe"], None,
+                          window_bucket=16)
+    got = eng.run_tracklets(m["feats"][:1])
+    _same(got, want, atol=1e-5, rtol=0)
+    assert got[0]["theta"].shape == (14, 85)
+    for call in (lambda: eng.run_tracklets_from_crops(m["crops"]),
+                 lambda: eng.extract_features(m["crops"][0]),
+                 lambda: eng.extract_features_multi(m["crops"])):
+        with pytest.raises(ValueError, match="backbone=None"):
+            call()
+
+
 def test_engine_rejections(m):
     with pytest.raises(ValueError, match="unknown outputs"):
         _port(m, outputs=("theta", "bogus"))

@@ -437,7 +437,9 @@ def test_run_train_cpu_epoch_checkpoint_and_resume(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--devices", "2"], "--devices is not ported"),
-    (["--profile", "x"], "--profile is not ported"),
+    # --profile is ported (utils.profiling.trace): parsed, then --devices
+    # is still refused
+    (["--profile", "x", "--devices", "2"], "--devices is not ported"),
     (["--precision", "bf16"], "float32 only"),
 ])
 def test_main_rejects_unported_options(monkeypatch, argv, match):

@@ -9,9 +9,12 @@ import time
 import numpy as np
 import torch
 
-# the card's peaks for a bound: fp32 outside the tensor cores, HBM3 (the
-# H100 SXM's datasheet figures)
-PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+from tepose_tpu_torch.utils.flops import H100_PEAK_FLOPS
+
+# the card's peaks for a bound: fp32 outside the tensor cores (the H100
+# SXM's entry of the port's peak table) and HBM3 (its datasheet figure)
+PEAK_FP32_FLOPS = H100_PEAK_FLOPS["NVIDIA H100 80GB HBM3"]["float32"]
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def device_ms(fn, launches: int = 50, reps: int = 15) -> list:
