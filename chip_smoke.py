@@ -117,6 +117,31 @@ Phases, each of which raises on failure (no phase's error is caught):
      rollout at B = 32, T = 128: its FLOPs, time and share of
      `peak_flops(cuda, float32)`.
 
+ 11. offline DB building at full width (ResNet-50 on 224 x 224 crops, SMPL
+     with 6890 vertices, VIBE 2 x 1024 at batch 450, strict float32),
+     after printing which of cv2, PIL, h5py, joblib and scipy this host
+     has: (a) a reference-layout 3DPW test split fabricated under
+     build/chip_smoke_preprocess/ (one sequence pkl, 2 people x 24 frames,
+     240 x 320 uint8 frames from a numpy seed, handed to the builder from
+     memory through `imread`) built by
+     `tepose_tpu_torch.preprocess.threedpw.read_data` on cuda, written by
+     `data.db.save_db` and read back equal by `data.db.load_db`, held to
+     the JAX golden (tests/golden/torch_port_preprocess_f32.npz, from
+     tools/make_torch_preprocess_golden.py): host arrays equal, pose and
+     joints3D within 1e-4, features within 1e-4 of their magnitude; (b)
+     `preprocess.pseudo_theta.pseudo_thetas_for_features` on seeded
+     features of videos of 500, 450 and 120 frames (a chunk and a tail,
+     an exact chunk, a video shorter than a chunk) within 1e-6 of the
+     golden, written by `write_db` and read back equal, and once more with
+     TF32 allowed, a control that must miss that bar; each with the LBS
+     count zeroed before and required > 0 after (pseudo-theta's skinned
+     vertices are discarded, so (c) is what checks the kernel at
+     B = 450); (c) timings: the
+     extractor's host crops and its device features apart (1,024 crops
+     at batch 256), pseudo-theta ms per 450-frame chunk with its kernels
+     and idle share, and the LBS kernel at B = 450 against its plain
+     version (error within 1e-5, device time, bound).
+
 Before the last line it prints one JSON line with the kernels' routes,
 launches per path, errors and times; the last line is the ok/device JSON
 object.
@@ -124,6 +149,7 @@ object.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1185,6 +1211,247 @@ def phase10_release(card: str, p5: dict, p8: dict) -> dict:
     return {"launches": launches}
 
 
+# phase 11's shapes: the extractor's timing batch, the pseudo-theta chunk
+# (the VIBE batch of `tools/preprocess/pseudo_theta.py`), which is also the
+# skinning kernel's new launch size
+PRE_DIR = os.path.join(REPO, "build", "chip_smoke_preprocess")
+EXTRACT_CROPS, EXTRACT_BATCH = 1024, 256
+PRE_LBS_BATCH = 450
+
+
+def phase11_preprocess(card: str) -> dict:
+    import importlib
+    import shutil
+
+    import make_torch_preprocess_golden as pg
+    from kernel_timing import device_ms, lbs_bound, lbs_inputs, profile_device
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from tepose_tpu_torch.data.db import (
+        load_db, load_pseudotheta, save_db, write_db)
+    from tepose_tpu_torch.data.preprocess import FeatureExtractor
+    from tepose_tpu_torch.models.backbone import (
+        normalize_crop, resnet50_features)
+    from tepose_tpu_torch.native import crop_normalize
+    from tepose_tpu_torch.preprocess import pseudo_theta, threedpw
+    from tepose_tpu_torch.streaming.engine import device_scope
+
+    def importable(name: str):
+        try:
+            importlib.import_module(name)
+        except ImportError as e:
+            return f"{type(e).__name__}: {e}"[:120]
+        return True
+
+    res = {"card": card}
+    have = {m: importable(m) for m in ("cv2", "PIL", "h5py", "joblib",
+                                       "scipy.io")}
+    res["host_libraries"] = have
+    print(f"phase 11: host libraries on this machine (true, or why the "
+          f"import failed): {json.dumps(have)}")
+    golden = pg.load_golden()
+    spec = golden["spec"]
+    setup = pg.port_setup(spec, "cuda")
+    sums = pg.weight_checksums(setup)
+    if not np.allclose(sums, golden["weight_checksums"], rtol=1e-9, atol=0):
+        raise RuntimeError(
+            f"weights rebuilt from the preprocess golden's seeds differ from "
+            f"the golden's ({sums} vs {golden['weight_checksums']})")
+    shutil.rmtree(PRE_DIR, ignore_errors=True)
+    folder, frames = pg.fabricate_3dpw(PRE_DIR, spec)
+    db_dir = os.path.join(PRE_DIR, "db")
+
+    # (a) the 3DPW builder on the card, frames from memory; the DB file
+    # written and read back
+    lbs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    db = threedpw.read_data(folder, "test", backbone=setup["backbone"],
+                            smpl=setup["smpl"], j_regressor=setup["jreg"],
+                            device="cuda", imread=frames.__getitem__)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    db_launches = lbs.LAUNCHES
+    if db_launches <= 0:
+        raise RuntimeError("the 3DPW builder never launched the lbs kernel")
+    path = save_db(db, "3dpw_test", db_dir)
+    back = load_db(path)
+    if back.keys() != db.keys() or not all(
+            back[k].dtype == db[k].dtype and np.array_equal(back[k], db[k])
+            for k in db):
+        raise RuntimeError(f"{path} read back differs from what was written")
+
+    # (b) pseudo-thetas on the card, written and read back
+    vid, feats = pg.pseudo_inputs(spec)
+    lbs.LAUNCHES = 0
+    thetas = pseudo_theta.pseudo_thetas_for_features(
+        vid, feats, setup["vibe"], setup["smpl"], spec["vibe_batch"])
+    torch.cuda.synchronize()
+    pse_launches = lbs.LAUNCHES
+    # pseudo-theta keeps only theta, so these launches skin vertices that no
+    # comparison reads: the count shows the path runs the kernel at B = 450,
+    # and (c) holds the kernel's output at B = 450 against the einsum
+    if pse_launches <= 0:
+        raise RuntimeError("pseudo-theta never launched the lbs kernel")
+    pse_path = write_db(thetas, os.path.join(db_dir,
+                                             "3dpw_test_pseudotheta.pt"))
+    if not np.array_equal(load_pseudotheta(pse_path), thetas):
+        raise RuntimeError(f"{pse_path} read back differs")
+
+    dev = pg.golden_deviation(pg.golden_outputs(back, thetas, folder),
+                              golden)
+    res.update(deviation=dev, build_s=build_s, db_rows=len(db["vid_name"]),
+               launches={"preprocess_3dpw": db_launches,
+                         "pseudo_theta": pse_launches})
+    print(f"phase 11a: threedpw.read_data test split on cuda ({spec['people']}"
+          f" people x {spec['frames']} frames of {spec['height']} x "
+          f"{spec['width']}, ResNet-50 on 224^2 crops, V={spec['num_verts']})"
+          f" -> {len(db['vid_name'])} rows in {build_s:.3f} s; {path} read "
+          f"back equal; host arrays equal to the JAX golden; lbs launches "
+          f"{db_launches}; deviation / bar: " + ", ".join(
+              f"{k} {d:.3e} / {bar:.3e}" for k, (d, bar) in dev.items()
+              if k != "pseudo_theta"))
+    print(f"phase 11b: pseudo_thetas_for_features on cuda (VIBE "
+          f"{spec['vibe_n_layers']} x {spec['vibe_hidden_size']}, videos of "
+          f"{spec['pseudo_lengths']} frames at batch {spec['vibe_batch']}) "
+          f"-> {thetas.shape}; {pse_path} read back equal; lbs launches "
+          f"{pse_launches}; deviation from the JAX golden / bar: "
+          f"{dev['pseudo_theta'][0]:.3e} / {dev['pseudo_theta'][1]:.1e}")
+    bad = {k: v for k, v in dev.items() if not v[0] <= v[1]}
+    if bad:
+        raise RuntimeError(f"offline DB building misses its golden: {bad}")
+
+    # the control: the same pseudo-thetas with TF32 allowed (the flags that
+    # `device_scope` clears); the theta bar must tell it from strict fp32
+    @contextlib.contextmanager
+    def tf32_scope():
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.inference_mode():
+                yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+
+    strict_scope, pseudo_theta.device_scope = (pseudo_theta.device_scope,
+                                               tf32_scope)
+    try:
+        tf32 = pseudo_theta.pseudo_thetas_for_features(
+            vid, feats, setup["vibe"], setup["smpl"], spec["vibe_batch"])
+    finally:
+        pseudo_theta.device_scope = strict_scope
+    tf32_dev = float(np.abs(tf32 - golden["pseudo_theta"]).max())
+    res["pseudo_theta_tf32_deviation"] = tf32_dev
+    print(f"phase 11b: control with TF32 allowed: pseudo-thetas "
+          f"{tf32_dev:.3e} from the golden (strict fp32 "
+          f"{dev['pseudo_theta'][0]:.3e}, bar {dev['pseudo_theta'][1]:.1e})")
+    if not tf32_dev > dev["pseudo_theta"][1]:
+        raise RuntimeError(
+            f"the theta bar {dev['pseudo_theta'][1]:.1e} does not tell "
+            f"TF32 ({tf32_dev:.3e}) from strict fp32")
+
+    # (c) timings: the extractor's host crops and device features apart,
+    # VIBE per 450-frame chunk, the skinning kernel at B = 450
+    rs = np.random.RandomState(11)
+    imgs = list(frames.values())
+    H, W = spec["height"], spec["width"]
+    boxes = np.stack([rs.uniform(0.3, 0.7, EXTRACT_CROPS) * W,
+                      rs.uniform(0.3, 0.7, EXTRACT_CROPS) * H,
+                      rs.uniform(80, 200, EXTRACT_CROPS),
+                      rs.uniform(80, 200, EXTRACT_CROPS)], 1).astype(
+        np.float32)
+    crops = np.empty((EXTRACT_CROPS, 3, 224, 224), np.uint8)
+    t0 = time.perf_counter()
+    for i in range(EXTRACT_CROPS):   # one call a crop, as the builders crop
+        crops[i] = crop_normalize(imgs[i % len(imgs)], boxes[i:i + 1], 224,
+                                  1.3, normalize=False)[0]
+    crop_s = time.perf_counter() - t0
+    fe = FeatureExtractor(setup["backbone"], batch_size=EXTRACT_BATCH)
+    fe_s = host_seconds(lambda: fe.features_from_crops(crops), reps=3)
+    fe_prof = profile_device(lambda: fe.features_from_crops(crops))
+    x = torch.from_numpy(crops[:EXTRACT_BATCH]).cuda()
+
+    def one_batch():
+        with device_scope():
+            resnet50_features(setup["backbone"], normalize_crop(x))
+
+    batch_ms = float(np.median(device_ms(one_batch, launches=2, reps=5)))
+    res.update(
+        crop_host_s=crop_s, crops_per_s_host_crop=EXTRACT_CROPS / crop_s,
+        features_s=fe_s,
+        crops_per_s_features=EXTRACT_CROPS / float(np.median(fe_s)),
+        device_ms_per_batch=batch_ms,
+        crops_per_s_device=1e3 * EXTRACT_BATCH / batch_ms,
+        features_idle_share=None if fe_prof is None
+        else fe_prof["idle_share"])
+    print(f"phase 11c: extractor at batch {EXTRACT_BATCH}, {EXTRACT_CROPS} "
+          f"uint8 224^2 crops: host crops (native, one call a crop) "
+          f"{crop_s:.3f} s = {res['crops_per_s_host_crop']:.1f} crops/s; "
+          f"features_from_crops {np.median(fe_s):.3f} s (median of "
+          f"{[round(t, 4) for t in fe_s]}, upload + ResNet-50 + readback, "
+          f"host clock) = {res['crops_per_s_features']:.1f} crops/s, idle "
+          f"share {res['features_idle_share']}; device time per batch of "
+          f"{EXTRACT_BATCH} (normalise + ResNet-50, strict fp32) "
+          f"{batch_ms:.3f} ms = {res['crops_per_s_device']:.1f} crops/s "
+          f"[{card}]")
+
+    n = PRE_LBS_BATCH
+    one_vid, one_feats = vid[:n], feats[:n]
+    if len(set(one_vid)) != 1:
+        raise RuntimeError("the first pseudo-theta video is under a chunk")
+
+    def chunk():
+        pseudo_theta.pseudo_thetas_for_features(
+            one_vid, one_feats, setup["vibe"], setup["smpl"], n)
+
+    chunk_s = host_seconds(chunk, reps=5)
+    prof = profile_device(chunk)
+    res.update(pseudo_ms_per_chunk=1e3 * float(np.median(chunk_s)),
+               pseudo_chunk_s=chunk_s)
+    if prof is None:
+        res.update(pseudo_kernels_per_chunk="not measured",
+                   pseudo_idle_share="not measured")
+    else:
+        res.update(pseudo_kernels_per_chunk=prof["kernels"],
+                   pseudo_idle_share=prof["idle_share"],
+                   pseudo_busy_ms=prof["busy_ms"],
+                   pseudo_top_kernels_ms=prof["top_kernels_ms"])
+    print(f"phase 11c: pseudo-theta {res['pseudo_ms_per_chunk']:.3f} ms per "
+          f"{n}-frame chunk (VIBE {spec['vibe_n_layers']} x "
+          f"{spec['vibe_hidden_size']} + IEF + SMPL V={spec['num_verts']}"
+          f", median of {[round(t, 4) for t in chunk_s]} s, host clock to a "
+          f"synchronise and the readback); kernels per chunk "
+          f"{res['pseudo_kernels_per_chunk']}, idle share "
+          f"{res['pseudo_idle_share']} (one profiled chunk) [{card}]")
+
+    wT, A, v = lbs_inputs(rs, n, LBS_V, torch.device("cuda"))
+    err = float((lbs.lbs_skinning(wT, A, v)
+                 - lbs.lbs_skinning_reference(wT, A, v)).abs().max())
+    if not err <= KERNEL_ATOL:
+        raise RuntimeError(f"lbs kernel disagrees at B={n}: {err}")
+
+    def kernel():
+        lbs.lbs_skinning(wT, A, v)
+
+    def plain():
+        lbs.lbs_skinning_reference(wT, A, v)
+
+    times = {kernel: [], plain: []}
+    for fn in (plain, kernel, kernel, plain):
+        times[fn] += device_ms(fn, launches=50 if fn is kernel else 5)
+    ms, plain_ms = (float(np.median(times[f])) for f in (kernel, plain))
+    bound_ms, bound_by = lbs_bound(n, LBS_V, wT.shape[0])
+    res["lbs"] = {n: dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)}
+    print(f"phase 11c: lbs B={n} V={LBS_V} max_abs_err={err:.3e}; device "
+          f"{ms:.5f} ms per launch, bound {bound_ms:.5f} ms ({bound_by}), "
+          f"{bound_ms / ms:.1%} of bound; plain einsum {plain_ms:.5f} ms "
+          f"[{card}]")
+    print(json.dumps({"preprocess_timings": res}, default=str))
+    return {"launches": res["launches"], "lbs": res["lbs"]}
+
+
 def main() -> None:
     card = phase0_device()
     sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
@@ -1198,12 +1465,14 @@ def main() -> None:
     p8 = phase8_train(card)
     p9 = phase9_demo(card)
     p10 = phase10_release(card, p5, p8)
+    p11 = phase11_preprocess(card)
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
     by_path = {"eval": sl["launches"], "engine": p5["launches"],
                "live": p6["launches"], "train_validation": p8["launches"],
-               **p9["launches"], "verify_release": p10["launches"]}
-    for B, r in p9["lbs"].items():
+               **p9["launches"], "verify_release": p10["launches"],
+               **p11["launches"]}
+    for B, r in {**p9["lbs"], **p11["lbs"]}.items():
         kern["device_ms"][B], kern["plain_ms"][B] = r["ms"], r["plain_ms"]
         kern["bound"][B] = (r["bound_ms"], r["bound_by"])
         kern["max_abs_err"] = max(kern["max_abs_err"], r["max_abs_err"])

@@ -3,7 +3,7 @@
 A copy of `tepose_tpu/config.py` (importing that module would import JAX
 through the `tepose_tpu` package), pinned equal to it by
 tests/test_torch_eval.py. Only the `--gpu` help text differs: in the port
-it picks the device.
+it picks the device, which `gpu_device` resolves for every entry point.
 """
 
 from __future__ import annotations
@@ -141,6 +141,11 @@ def update_cfg(cfg_file: str) -> CfgNode:
     cfg = get_cfg_defaults()
     cfg.merge_from_file(cfg_file)
     return cfg.clone()
+
+
+def gpu_device(gpu: str) -> str:
+    """The device a `--gpu` argument names: a CUDA index, or 'cpu'."""
+    return "cpu" if gpu == "cpu" else f"cuda:{int(gpu)}"
 
 
 def parse_args(argv: Optional[list] = None):

@@ -4,11 +4,14 @@ A copy of `tepose_tpu/data/db.py` (`train_db_paths`, `eval_db_paths`,
 `load_db`, `load_pseudotheta`, `key_eval_db_by_video`), pinned equal to it
 by tests/test_torch_eval.py and tests/test_torch_train_loop.py, except that
 the files are read by `read_joblib`, which needs no joblib: the DBs and
-pseudo-thetas are uncompressed joblib dumps of numpy arrays.
+pseudo-thetas are uncompressed joblib dumps of numpy arrays. The port writes
+them with `write_db` (`save_db` for a DB), as plain pickles, which
+`joblib.load` reads as well.
 """
 
 from __future__ import annotations
 
+import os
 import os.path as osp
 import pickle
 from typing import Any, Dict, Optional
@@ -155,10 +158,46 @@ def read_joblib(path: str) -> Any:
         return _JoblibUnpickler(f, path).load()
 
 
+# protocol 4 pickles objects over 4 GB (a whole dataset's features)
+PICKLE_PROTOCOL = 4
+
+
+def write_db(obj: Any, path: str) -> str:
+    """Write a DB dict or a pseudo-theta array as a plain pickle (protocol
+    4), where `joblib.dump` wrote a joblib file
+    (`tools/preprocess/common.py::save_db`, `pseudo_theta.py`).
+    `joblib.load`, `read_joblib` and `pickle.load` all read it. The file
+    appears whole: it is written under a temporary name and renamed."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            pickle.dump(obj, f, protocol=PICKLE_PROTOCOL)
+        os.replace(tmp, path)
+    finally:
+        if osp.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def save_db(dataset: Dict[str, np.ndarray], name: str,
+            db_dir: Optional[str] = None) -> str:
+    """`<db_dir>/<name>_db.pt` (default TEPOSE_DB_DIR), as
+    `tools/preprocess/common.py::save_db` names and reports it."""
+    d = db_dir or TePose_DB_DIR
+    os.makedirs(d, exist_ok=True)
+    path = osp.join(d, f"{name}_db.pt")
+    for k, v in dataset.items():
+        print(f"  {k}: {np.asarray(v).shape}")
+    write_db(dataset, path)
+    print(f"Saved DB to {path}")
+    return path
+
+
 def load_db(db_file: str) -> Dict[str, np.ndarray]:
     if not osp.isfile(db_file):
         raise FileNotFoundError(f"{db_file} does not exist — run the "
-                                "preprocessing tools (tools/preprocess) or "
+                                "preprocessing tools (python -m "
+                                "tepose_tpu_torch.preprocess.<dataset>) or "
                                 "point TEPOSE_DB_DIR at your DB directory")
     return read_joblib(db_file)
 
@@ -166,7 +205,8 @@ def load_db(db_file: str) -> Dict[str, np.ndarray]:
 def load_pseudotheta(pse_file: str) -> np.ndarray:
     if not osp.isfile(pse_file):
         raise FileNotFoundError(f"{pse_file} does not exist — generate it "
-                                "with tools/pseudo_theta.py")
+                                "with python -m "
+                                "tepose_tpu_torch.preprocess.pseudo_theta")
     return read_joblib(pse_file)
 
 

@@ -18,8 +18,9 @@ The offline `main` is split at decode: `track` turns decoded RGB frames
 into tracklets, `run_offline` runs every device step (engine, SMPLify,
 smoothing) and the rendering on decoded frames and returns the results
 and rendered frames, and `main` decodes, calls both and writes. Only
-decoding, the motion detectors, --wireframe, --display, the video writer
-and --save_pkl need OpenCV or joblib, imported where they are used.
+decoding, the motion detectors, --wireframe, --display and the video
+writer need OpenCV, imported where they are used. --save_pkl writes a
+plain pickle (`data.db.write_db`), which `joblib.load` reads.
 The models run on `cuda:<gpu>` unless `--gpu cpu`. `--profile DIR`
 records the whole run with `torch.profiler` (`utils.profiling.trace`) and
 writes the trace into DIR.
@@ -38,6 +39,9 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from tepose_tpu_torch.config import gpu_device
+from tepose_tpu_torch.data.db import write_db
 
 MIN_NUM_FRAMES = 25
 
@@ -156,7 +160,7 @@ def build_demo_models(args) -> DemoModels:
     from tepose_tpu_torch.weights import (
         load_checkpoint, state_dict_from_jax_tree)
 
-    device = demo_device(args)
+    device = gpu_device(args.gpu)
     mcfg = TePoseConfig(seqlen=6, n_layers=2, hidden_size=1024)
     vcfg = VibeConfig(seqlen=16, n_layers=2, hidden_size=1024,
                       add_linear=True)
@@ -624,12 +628,10 @@ def run_live(args, crop_size: int = 224):
         sys.exit("live mode produced no frames (empty input?)")
 
     if rows is not None:
-        import joblib
-
         pkl_path = osp.join(args.output_folder,
                             f"tepose_{base}_live_output.pkl")
-        joblib.dump({s: {k: np.asarray(v) for k, v in r.items()}
-                     for s, r in rows.items()}, pkl_path)
+        write_db({s: {k: np.asarray(v) for k, v in r.items()}
+                  for s, r in rows.items()}, pkl_path)
         print(f"Saved results to {pkl_path}")
 
     lat = np.asarray(lat_ms[1:] or lat_ms)  # drop the first, warm-up step
@@ -644,17 +646,13 @@ def run_live(args, crop_size: int = 224):
             "out_path": out_path}
 
 
-def demo_device(args) -> str:
-    return "cpu" if args.gpu == "cpu" else f"cuda:{int(args.gpu)}"
-
-
 def main(argv=None):
     args = parse_args(argv)
     if not args.profile:
         return _main(args)
     from tepose_tpu_torch.utils.profiling import trace
 
-    with trace(args.profile, demo_device(args)):
+    with trace(args.profile, gpu_device(args.gpu)):
         return _main(args)
 
 
@@ -706,10 +704,8 @@ def _main(args):
     os.makedirs(args.output_folder, exist_ok=True)
     base = osp.splitext(osp.basename(args.vid_file))[0]
     if args.save_pkl:
-        import joblib
-
         pkl_path = osp.join(args.output_folder, f"tepose_{base}_output.pkl")
-        joblib.dump(results, pkl_path)
+        write_db(results, pkl_path)
         print(f"Saved results to {pkl_path}")
 
     if out["frames"] is not None:

@@ -346,7 +346,7 @@ def render_eval_video(dataset, seq_name, d, pred_theta, smpl, args,
 
 
 def main():
-    from tepose_tpu_torch.config import parse_args
+    from tepose_tpu_torch.config import gpu_device, parse_args
 
     synthetic = "--synthetic" in sys.argv
     if synthetic:
@@ -363,7 +363,7 @@ def main():
                 "only; a faster tier needs its own drift measurement")
         del sys.argv[i:i + 2]
     cfg, _, args = parse_args()
-    device = "cpu" if args.gpu == "cpu" else f"cuda:{int(args.gpu)}"
+    device = gpu_device(args.gpu)
     return run_eval(cfg, args, synthetic=synthetic, device=device)
 
 

@@ -169,7 +169,7 @@ def _take(flag: str, cast=str):
 
 
 def main():
-    from tepose_tpu_torch.config import parse_args
+    from tepose_tpu_torch.config import gpu_device, parse_args
 
     profile = _take("--profile")
     for flag in UNPORTED_FLAGS:
@@ -190,7 +190,7 @@ def main():
                 "only; bf16 compute is not ported")
         del sys.argv[i:i + 2]
     cfg, cfg_file, args = parse_args()
-    device = "cpu" if args.gpu == "cpu" else f"cuda:{int(args.gpu)}"
+    device = gpu_device(args.gpu)
     return run_train(cfg, profile=profile, synthetic=synthetic,
                      smoke_iters=smoke_iters, smoke_verts=smoke_verts,
                      device=device, cfg_file=cfg_file)

@@ -305,8 +305,8 @@ def _fabricate_checkpoints(dirpath: str, titles) -> str:
 def _fabricate_eval_dbs(db_dir: str, runs) -> None:
     """Eval DBs in the reference's preprocessed layout (flat frame-major
     arrays and a per-frame vid_name) for every DB the runs read, written
-    with plain pickle."""
-    from tepose_tpu_torch.data.db import eval_db_paths
+    by `data.db.write_db` (plain pickles)."""
+    from tepose_tpu_torch.data.db import eval_db_paths, write_db
 
     os.makedirs(db_dir, exist_ok=True)
     made = set()
@@ -336,9 +336,8 @@ def _fabricate_eval_dbs(db_dir: str, runs) -> None:
             db["shape"] = (rs.randn(N, 10) * 0.2).astype(np.float32)
         pse = np.concatenate([np.tile([1.0, 0, 0], (N, 1)),
                               rs.randn(N, 82) * 0.1], axis=1).astype(np.float32)
-        for obj, path in ((db, db_file), (pse, pse_file)):
-            with open(path, "wb") as f:
-                pickle.dump(obj, f)
+        write_db(db, db_file)
+        write_db(pse, pse_file)
 
 
 def fabricate_release(dirpath: str, runs, tol_pa: float = 0.1,
@@ -428,7 +427,9 @@ def main(argv=None) -> int:
                     help="fabricate reference-layout assets and verify the "
                          "whole flow without real data")
     args = ap.parse_args(argv)
-    device = "cpu" if args.gpu == "cpu" else f"cuda:{int(args.gpu)}"
+    from tepose_tpu_torch.config import gpu_device
+
+    device = gpu_device(args.gpu)
 
     if args.self_test:
         report = self_test(device, args.only or SELFTEST_KEYS, args.workdir,

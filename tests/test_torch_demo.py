@@ -296,6 +296,30 @@ def test_demo_live_matches_jax(shared, monkeypatch, tmp_path, streams):
                   for k in ("port", "jax")))
 
 
+def test_demo_save_pkl_without_joblib(shared, monkeypatch, tmp_path):
+    """--save_pkl writes through `data.db.write_db` with joblib blocked (the
+    GPU host has none); joblib.load reads the file back as the port's
+    reader does. (--live writes its pkl through the same function.)"""
+    joblib = pytest.importorskip("joblib")
+    pytest.importorskip("cv2")
+    from tepose_tpu_torch.data.db import read_joblib
+
+    _, argv = _duo_inputs(tmp_path)
+    folder = str(tmp_path / "out")
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "joblib", None)
+        port_demo.main(argv + ["--output_folder", folder, "--synthetic",
+                               "--gpu", "cpu"])
+    path = os.path.join(folder, "tepose_duo_output.pkl")
+    got, want = joblib.load(path), read_joblib(path)
+    assert sorted(got) == sorted(want) == [0, 1]
+    for pid in (0, 1):
+        assert got[pid].keys() == want[pid].keys()
+        assert "verts" in got[pid]
+        for k in got[pid]:
+            np.testing.assert_array_equal(got[pid][k], want[pid][k], k)
+
+
 def test_demo_refuses_profile_and_joints_only_meshes(tmp_path):
     """--profile was refused until the port had `utils.profiling.trace`;
     now the demo parses it and runs under the trace, where joints-only

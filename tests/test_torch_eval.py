@@ -316,8 +316,9 @@ def test_main_rejects_unported_options(monkeypatch, argv, match):
 
 def test_never_imports_jax():
     """Every port module and chip_smoke import without JAX, with the demo's
-    optional host libraries present and with them, JAX and the JAX package
-    blocked (the GPU host has no JAX, cv2, matplotlib or joblib)."""
+    and the DB builders' optional host libraries present and with them, JAX
+    and the JAX package blocked (the GPU host has no JAX, joblib or h5py,
+    and cv2 and matplotlib are not assumed)."""
     code = (
         "import sys\n"
         "for name in sys.argv[1:]:\n"
@@ -334,12 +335,14 @@ def test_never_imports_jax():
         "for m in ('evaluate', 'demo', 'native', 'streaming.tracker',\n"
         "          'utils.vis', 'models.smplify', 'convert_checkpoint',\n"
         "          'convert_smpl', 'verify_release', 'utils.flops',\n"
-        "          'utils.profiling'):\n"
+        "          'utils.profiling', 'preprocess.threedpw',\n"
+        "          'preprocess.pseudo_theta', 'preprocess.insta',\n"
+        "          'data.preprocess'):\n"
         "    assert 'tepose_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    for blocked in ([], ["cv2", "matplotlib", "joblib", "jax", "jaxlib",
-                         "tepose_tpu"]):
+    for blocked in ([], ["cv2", "matplotlib", "joblib", "h5py", "jax",
+                         "jaxlib", "tepose_tpu"]):
         proc = subprocess.run([sys.executable, "-c", code, *blocked],
                               cwd=REPO, env=env, capture_output=True,
                               text=True, timeout=120)
