@@ -2,6 +2,7 @@
 """GPU smoke run of the PyTorch port (tepose_tpu_torch) on one CUDA card.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --timings   # phases 1, 5, 7 and 8c only
 
 Phases, each of which raises on failure (no phase's error is caught):
   0. require CUDA; strict float32 (TF32 off for matmuls and cuDNN); print
@@ -141,6 +142,41 @@ Phases, each of which raises on failure (no phase's error is caught):
      at batch 256), pseudo-theta ms per 450-frame chunk with its kernels
      and idle share, and the LBS kernel at B = 450 against its plain
      version (error within 1e-5, device time, bound).
+
+ 12. the scale-out slice at full width on two shards of the card
+     ([cuda:0, cuda:0]): (a) `run_eval(--synthetic, 3dpw,
+     devices=make_mesh(devices=[cuda:0, cuda:0]))` with twice phase 3's
+     LBS launches (one a shard where one device launched once) and its
+     metrics within 1e-2 mm of phase 3's, and the sharded rollout's
+     per-frame J14, theta and MPVPE within 1e-5 of one device, its
+     launches at B/2; (b) data-parallel training at batch 40 = 24 2D + 16
+     3D rows (both halves with rows whose videos end early and rows in the
+     GAN), K = 3 windows at update rate 0.9 with dropout: world 1 over
+     NCCL through `parallel.dp` against the plain segment, both in
+     deterministic mode, losses within 1e-6 relative and every leaf within
+     1e-6 of its magnitude (two plain segments in the default mode are
+     printed apart: cuDNN's backward sums in any order); then world 2 as
+     two processes on cuda:0 over gloo (`chip_smoke.py --dp-worker`)
+     against world 1 at phase 8a's K = 3 bars; (c) `StreamingEngine`
+     (8 tracklets x 128 uint8 frames, `parity`), `LiveSession` (2 streams,
+     one reset) and `FeatureExtractor` (batch 256, 300 crops) with the
+     mesh against the same without it, at phase 5's, 6's and 11's bars,
+     each object's LBS launches counted alone: the mesh engine and live
+     session launch twice what one device launches (live: twice phase
+     6's); (d) eval ms per window with the mesh and without (B = 32,
+     T = 128, in turns) and each one's kernels a window and idle share
+     (`kernel_timing.profile_device`), training ms per window plain,
+     at world 1 over NCCL and at world 2 over gloo, and the all-reduce's
+     share of a traced segment (`utils.profiling.trace`); (e) `python -m
+     tepose_tpu_torch.train --synthetic --devices 1 --smoke-iters 2`
+     writes one logdir, and `--devices 2` on a one-card host exits
+     non-zero naming the visible count. Its outputs go under
+     build/chip_smoke_parallel/.
+
+With `--timings` it runs phases 0, 1, 5 and 7, and phase 8c on a fresh
+training loop after one untimed segment, and prints no kernels or ok line:
+a copy of this script at the root of another tree of the port (a parent
+commit's `git archive`) times that tree the same way, in turns.
 
 Before the last line it prints one JSON line with the kernels' routes,
 launches per path, errors and times; the last line is the ok/device JSON
@@ -296,7 +332,8 @@ def phase3_slice() -> dict:
           f"{json.dumps(metrics)}; {res['frames']} frames in "
           f"{res['seconds']:.3f} s = {fps:.1f} frames/s (warm run); "
           f"lbs launches {launches}")
-    return {"launches": launches}
+    return {"launches": launches, "metrics": metrics,
+            "ms_per_frame": 1e3 * res["seconds"] / res["frames"]}
 
 
 def phase4_golden() -> None:
@@ -521,6 +558,7 @@ def phase7_timings(p5: dict, card: str) -> dict:
               f"float32 backbone, {LIVE_PUSHES} pushes after the first: p50 "
               f"{p50:.3f} ms, p99 {p99:.3f} ms [{card}]")
     print(json.dumps({"serving_timings": res}))
+    res.update(setup=setup, engine_crops=crops)
     return res
 
 
@@ -529,13 +567,10 @@ TRAIN_WINDOWS, TRAIN_TIMED_SEGMENTS = 20, 4
 
 def phase8_train(card: str) -> dict:
     import make_torch_train_golden as tg
-    from kernel_timing import profile_device
     import tepose_tpu_torch.ops.lbs_skinning as lbs
     from tepose_tpu_torch.config import update_cfg
     from tepose_tpu_torch.train.optim import opt_state_leaves
-    from tepose_tpu_torch.train.run import (
-        build_train_loop, close_loaders, run_train)
-    from tepose_tpu_torch.train.trainer import train_segment
+    from tepose_tpu_torch.train.run import build_train_loop, run_train
 
     # (a) the JAX golden
     golden = tg.load_golden()
@@ -621,7 +656,19 @@ def phase8_train(card: str) -> dict:
           f"bit-equal")
 
     # (c) timings, on the resumed loop
-    loop = fresh
+    _, train_two_windows = train_timings(fresh, card, launches)
+    return {"launches": launches, "train_two_windows": train_two_windows}
+
+
+def train_timings(loop, card: str, validation_launches=None) -> tuple:
+    """Phase 8c on a built training loop: TRAIN_TIMED_SEGMENTS segments'
+    host seconds, one profiled segment, one validation batch. Returns the
+    timings and a two-window training step (phase 10's trace)."""
+    from kernel_timing import profile_device
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from tepose_tpu_torch.train.run import close_loaders
+    from tepose_tpu_torch.train.trainer import train_segment
+
     hp, B = loop.hp, loop.hp.n_2d + loop.hp.n_3d
     torch.cuda.reset_peak_memory_stats()
     loop.train_epoch(1, TRAIN_TIMED_SEGMENTS)
@@ -652,7 +699,7 @@ def phase8_train(card: str) -> dict:
            "samples_windows_per_s": B * TRAIN_WINDOWS / med,
            "segment_s": loop.segment_seconds, "peak_memory_gb": peak_gb,
            "validation_ms_per_window": 1e3 * val_s / max(val_windows, 1),
-           "validation_launches": launches}
+           "validation_launches": validation_launches}
     if prof is None:
         res.update(idle_share="not measured", kernels_per_window=
                    "not measured")
@@ -673,7 +720,7 @@ def phase8_train(card: str) -> dict:
           f"{res['validation_ms_per_window']:.3f} ms/window ({val_windows} "
           f"windows at B=8, one batch) [{card}]")
     print(json.dumps({"train_timings": res}))
-    return {"launches": launches, "train_two_windows": train_two_windows}
+    return res, train_two_windows
 
 
 # phase 9's shapes: the demo clip, SMPLify's tracklet length and a long
@@ -1452,26 +1499,546 @@ def phase11_preprocess(card: str) -> dict:
     return {"launches": res["launches"], "lbs": res["lbs"]}
 
 
+# phase 12: the scale-out paths on one card. Two shards of cuda:0 stand in
+# for two devices; the data-parallel batch is 40 = 24 2D + 16 3D rows (the
+# config's 32 splits 19 + 13, which no world of 2 divides)
+PAR_DIR = os.path.join(REPO, "build", "chip_smoke_parallel")
+PAR_DEVICES = ["cuda:0", "cuda:0"]
+DP_N2D, DP_N3D, DP_K, DP_RATE, DP_TIMED = 24, 16, 3, 0.9, 2
+DP_TIMEOUT = 600
+
+
+def dp_spec():
+    import make_torch_train_golden as tg
+
+    return dict(tg.FULL_SPEC, n_2d=DP_N2D, n_3d=DP_N3D, windows=(DP_K,))
+
+
+def dp_setup():
+    """Full-width training models on cuda:0 and one batch of 24 + 16 rows
+    at update_theta_rate 0.9, the 3D rows of both halves with videos that
+    end after window 1 and rows in the GAN (different counts a half)."""
+    import dataclasses
+
+    import make_torch_train_golden as tg
+
+    setup = tg.port_setup(dp_spec(), "cuda")
+    setup["hp"] = dataclasses.replace(setup["hp"], update_theta_rate=DP_RATE)
+    b3 = setup["batch_3d"]
+    b3["vidlen_each"][DP_N3D - 3:] = setup["hp"].seqlen + 1
+    b3["w_smpl"][DP_N3D - 2:] = 0.0
+    return setup
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and torch's deterministic mode
+    (warnings only where an op has none): two runs of one segment then
+    agree bit for bit. By default cuDNN's convolution backward may sum in
+    any order, and Adam turns float-noise gradients into steps of lr."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def leaf_deviation(got: dict, want: dict) -> float:
+    """The largest deviation of any parameter or BN statistic, relative to
+    that array's magnitude."""
+    return max(float(np.abs(got[g][k] - v).max() / max(np.abs(v).max(),
+                                                        1e-12))
+               for g in ("gen", "disc", "disc_state")
+               for k, v in want[g].items())
+
+
+def dp_draws():
+    return torch.Generator(device="cuda").manual_seed(5)
+
+
+def dp_segment(setup, sharded: bool) -> dict:
+    """One DP_K-window segment with dropout; returns losses and state."""
+    import make_torch_train_golden as tg
+    from tepose_tpu_torch.parallel import dp
+    from tepose_tpu_torch.train.trainer import train_segment
+
+    args = (setup["gen"], setup["disc"], setup["smpl"], setup["gen_opt"],
+            setup["disc_opt"], setup["hp"], setup["weights"])
+    batches = (setup["batch_2d"], setup["batch_3d"], setup["amass"])
+    if sharded:
+        losses = dp.sharded_train_segment(*args, *dp.local_batches(*batches),
+                                          dp_draws())
+    else:
+        losses = train_segment(*args, *batches, dp_draws())
+    torch.cuda.synchronize()
+    return {"losses": losses, **tg.port_state(setup)}
+
+
+def all_reduce_share(prof, span_ms: float) -> dict:
+    """The collectives' time in a `utils.profiling.trace` of a segment that
+    took `span_ms` (host clock, under the profiler): host time inside
+    `tepose:all_reduce` spans and device time of NCCL kernels (none at
+    world size 1), and the larger as a share of the span."""
+    host_us = dev_us = 0.0
+    for k in prof.key_averages():
+        if k.key == "tepose:all_reduce":
+            host_us += k.cpu_time_total
+        elif "nccl" in k.key.lower():
+            dev_us += getattr(k, "device_time_total",
+                              getattr(k, "cuda_time_total", 0.0))
+    return {"host_ms": host_us / 1e3, "nccl_device_ms": dev_us / 1e3,
+            "share": max(host_us, dev_us) / 1e3 / span_ms}
+
+
+def dp_timed(setup, sharded: bool, trace_dir) -> dict:
+    """DP_TIMED segments' host ms per window (to a synchronise), then one
+    traced segment's all-reduce share (`trace_dir` None: not traced)."""
+    from tepose_tpu_torch.utils.profiling import trace
+
+    secs = []
+    for _ in range(DP_TIMED):
+        t0 = time.perf_counter()
+        dp_segment(setup, sharded)
+        secs.append(time.perf_counter() - t0)
+    out = {"ms_per_window": 1e3 * float(np.median(secs)) / DP_K,
+           "segment_s": secs}
+    if trace_dir is None:
+        dp_segment(setup, sharded)
+        return out
+    with trace(trace_dir, "cuda") as t:
+        t0 = time.perf_counter()
+        dp_segment(setup, sharded)
+        span_ms = 1e3 * (time.perf_counter() - t0)
+    out["all_reduce"] = dict(all_reduce_share(t.profiler, span_ms),
+                             traced_segment_ms=span_ms)
+    return out
+
+
+def dp_worker(argv) -> None:
+    """One rank of phase 12b's world 2: `RANK WORLD PORT OUT`, on cuda:0
+    over gloo; rank 0 writes the state after one segment and the timings."""
+    from tepose_tpu_torch.parallel import distributed
+
+    rank, world, port, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.maybe_initialize(f"localhost:{port}", world, rank,
+                                 backend="gloo", timeout_s=DP_TIMEOUT)
+    try:
+        setup = dp_setup()
+        got = dp_segment(setup, sharded=True)
+        timing = dp_timed(setup, True, os.path.join(PAR_DIR, "trace_gloo")
+                          if rank == 0 else None)
+    finally:
+        distributed.shutdown()
+    if rank == 0:
+        flat = {f"{g}/{k}": v for g in ("gen", "disc", "disc_state")
+                for k, v in got[g].items()}
+        np.savez(out, **flat)
+        with open(out + ".json", "w") as f:
+            json.dump({"losses": got["losses"], "timing": timing}, f)
+
+
+def dp_deviation(got: dict, want: dict) -> dict:
+    """(largest deviation, bar) at phase 8a's K = 3 bars: losses relative
+    (1e-3), BN running statistics relative to each array's magnitude
+    (1e-3), every leaf absolute (2 K lr of its optimizer)."""
+    spec = dp_spec()
+    dev = {"losses": (max(abs(got["losses"][k] - v) / max(abs(v), 1e-12)
+                          for k, v in want["losses"].items()), 1e-3),
+           "bn_stats": (max(float(np.abs(got["disc_state"][k] - v).max()
+                                  / max(np.abs(v).max(), 1e-12))
+                            for k, v in want["disc_state"].items()
+                            if k.endswith(("running_mean", "running_var"))),
+                        1e-3)}
+    for g, lr in (("gen", spec["gen_lr"]), ("disc", spec["disc_lr"])):
+        dev[f"{g}_leaves"] = (max(float(np.abs(got[g][k] - v).max())
+                                  for k, v in want[g].items()),
+                              2.0 * DP_K * lr)
+    return dev
+
+
+def phase12_parallel(card: str, p3: dict, p6: dict, p7: dict) -> dict:
+    """The scale-out paths at full width on [cuda:0, cuda:0]: (a) sharded
+    eval, (b) data-parallel training (world 1 over NCCL, world 2 over gloo
+    in two processes), (c) engine, live session and extractor with a mesh,
+    (d) timings, (e) the training CLI's --devices."""
+    import shutil
+    import socket
+
+    from kernel_timing import profile_device
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from tepose_tpu_torch.config import parse_args
+    from tepose_tpu_torch.data.preprocess import FeatureExtractor
+    from tepose_tpu_torch.eval.evaluator import (
+        eval_rollout, make_sharded_eval_rollout)
+    from tepose_tpu_torch.evaluate import (
+        build_models, make_eval_batch, run_eval, synthetic_eval_data)
+    from tepose_tpu_torch.parallel import distributed
+    from tepose_tpu_torch.parallel.mesh import make_mesh
+    from tepose_tpu_torch.streaming.engine import device_scope
+    from tepose_tpu_torch.streaming.live import LiveSession
+
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    os.makedirs(PAR_DIR)
+    mesh = make_mesh(devices=PAR_DEVICES)
+    res: dict = {"card": card, "launches": {}}
+    cfg_path = os.path.join(REPO, "configs", "repr_wopw_3dpw_model.yaml")
+
+    # (a) eval: run_eval with the mesh against phase 3, then the rollout's
+    # per-frame outputs on one batch
+    cfg, _, args = parse_args(["--cfg", cfg_path, "--dataset", "3dpw"])
+    lbs.LAUNCHES = 0
+    out = run_eval(cfg, args, synthetic=True, device="cuda", devices=mesh)
+    torch.cuda.synchronize()
+    launches = lbs.LAUNCHES
+    res["launches"]["eval_mesh"] = launches
+    dm = max(abs(out[k] - v) for k, v in p3["metrics"].items())
+    print(f"phase 12a: run_eval synthetic 3dpw over {PAR_DEVICES}: lbs "
+          f"launches {launches} (one device: {p3['launches']}); metrics "
+          f"{json.dumps({k: out[k] for k in p3['metrics']})}, max |mesh - "
+          f"one device| {dm:.3e} mm (bar 1e-2 mm = 1e-5 m)")
+    if launches != 2 * p3["launches"]:
+        raise RuntimeError(f"the sharded eval launched LBS {launches} times, "
+                           f"not one launch per shard where one device "
+                           f"launched once ({p3['launches']})")
+    if not dm <= 1e-2:
+        raise RuntimeError(f"sharded run_eval metrics differ by {dm} mm")
+    smpl, gen, vibe, jreg = build_models(cfg, True, "cuda")
+    data = synthetic_eval_data()
+    names = sorted(data)
+    S = gen.cfg.seqlen
+    T = 128
+    batch = make_eval_batch(data, names, S, T, 4)
+    W = T - S + 1
+    sharded = make_sharded_eval_rollout(gen, vibe, smpl, jreg, mesh)
+    with device_scope():
+        lbs.LAUNCHES = 0
+        got = sharded(batch["feats"], batch["theta_pseu"], batch["theta_gt"],
+                      W)
+        torch.cuda.synchronize()
+        per_shard = lbs.LAUNCHES
+        lbs.LAUNCHES = 0
+        want = eval_rollout(gen, vibe, smpl, *(torch.from_numpy(batch[k]).to(
+            "cuda") for k in ("feats", "theta_pseu", "theta_gt")), jreg, W)
+        torch.cuda.synchronize()
+        single = lbs.LAUNCHES
+    devs = {k: float((got[k] - want[k].cpu()).abs().max())
+            for k in ("pred_j3d", "pred_theta", "mpvpe")}
+    print(f"phase 12a: sharded rollout B=4 T={T} over {PAR_DEVICES} against "
+          f"one device: max |dev| J14 {devs['pred_j3d']:.3e} m, theta "
+          f"{devs['pred_theta']:.3e}, MPVPE {devs['mpvpe']:.3e} m (bars "
+          f"1e-5); lbs launches {per_shard} at B=2 against {single} at B=4")
+    if not all(d <= 1e-5 for d in devs.values()):
+        raise RuntimeError(f"sharded rollout misses one device: {devs}")
+    if per_shard != 2 * single:
+        raise RuntimeError("the sharded rollout did not launch LBS once a "
+                           "shard")
+    res["eval_deviation"] = devs
+
+    # (b) data-parallel training: world 1 over NCCL against the plain
+    # segment, both in deterministic mode, then world 2 (two processes on
+    # cuda:0 over gloo) against it. Two plain segments in the default mode
+    # show the spread that mode leaves.
+    spread = leaf_deviation(dp_segment(dp_setup(), sharded=False),
+                            dp_segment(dp_setup(), sharded=False))
+    with deterministic():
+        want = dp_segment(dp_setup(), sharded=False)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    distributed.maybe_initialize(f"localhost:{port}", 1, 0, backend="nccl",
+                                 timeout_s=DP_TIMEOUT)
+    try:
+        one = dp_setup()
+        with deterministic():
+            got = dp_segment(one, sharded=True)
+        timing1 = dp_timed(one, True, os.path.join(PAR_DIR, "trace_nccl"))
+    finally:
+        distributed.shutdown()
+    rel = max(abs(got["losses"][k] - v) / max(abs(v), 1e-12)
+              for k, v in want["losses"].items())
+    leaf = leaf_deviation(got, want)
+    print(f"phase 12b: world 1 over NCCL, batch {DP_N2D}+{DP_N3D}, K={DP_K} "
+          f"at update rate {DP_RATE} with dropout, against the plain segment"
+          f" (deterministic mode): losses {rel:.3e} relative (bar 1e-6), "
+          f"leaves {leaf:.3e} of their magnitude (bar 1e-6); gen_loss "
+          f"{got['losses']['gen_loss']:.6f}; two plain segments in the "
+          f"default mode part by {spread:.3e}")
+    if not (rel <= 1e-6 and leaf <= 1e-6):
+        raise RuntimeError("world 1 over NCCL misses the plain segment")
+    plain = dp_setup()
+    timing0 = dp_timed(plain, False, None)
+    del plain, one
+
+    out_path = os.path.join(PAR_DIR, "world2.npz")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         "2", str(port), out_path], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise RuntimeError(f"world-2 rank {r} failed (rc {p.returncode})"
+                               f":\n{log[-4000:]}")
+    with np.load(out_path) as z:
+        w2 = {g: {} for g in ("gen", "disc", "disc_state")}
+        for key in z.files:
+            g, k = key.split("/", 1)
+            w2[g][k] = z[key]
+    with open(out_path + ".json") as f:
+        meta = json.load(f)
+    w2["losses"] = meta["losses"]
+    dev = dp_deviation(w2, got)
+    print("phase 12b: world 2 (2 processes on cuda:0 over gloo) against "
+          "world 1; deviation / bar: " + ", ".join(
+              f"{k} {d:.3e} / {b:.1e}" for k, (d, b) in dev.items()))
+    bad = {k: v for k, v in dev.items() if not v[0] <= v[1]}
+    if bad:
+        raise RuntimeError(f"world 2 misses world 1: {bad}")
+    res["train"] = {"plain": timing0, "world1_nccl": timing1,
+                    "world2_gloo": meta["timing"],
+                    "world1_vs_plain": {"losses": rel, "leaves": leaf},
+                    "world2_vs_world1": {k: d for k, (d, _) in dev.items()}}
+
+    # (c) engine, live session and extractor with the mesh against the
+    # same object without one
+    import make_torch_serve_golden as sg
+
+    setup = p7["setup"]
+    crops = p7["engine_crops"]
+    engines = {"one": sg.port_engine(setup, preset="parity"),
+               "mesh": sg.port_engine(setup, preset="parity", mesh=mesh)}
+    outs, counts = {}, {}
+    for name, eng in engines.items():
+        lbs.LAUNCHES = 0
+        outs[name] = eng.run_tracklets_from_crops(crops)
+        torch.cuda.synchronize()
+        counts[name] = lbs.LAUNCHES
+    res["launches"]["engine_mesh"] = counts["mesh"]
+    worst = {}
+    for k in ("theta", "verts", "kp_3d", "kp_2d"):
+        d = max(float(np.abs(a[k] - b[k]).max())
+                for a, b in zip(outs["mesh"], outs["one"]))
+        mag = max(float(np.abs(b[k]).max()) for b in outs["one"])
+        worst[k] = (d, 1e-4 * mag if k == "kp_2d"
+                    else (1e-3 if k == "theta" else 1e-4))
+    print(f"phase 12c: engine parity {len(crops)} x {len(crops[0])} uint8 "
+          f"crops over {PAR_DEVICES}: lbs launches {counts['mesh']} (one "
+          f"device {counts['one']}); against one device / bar: "
+          + ", ".join(f"{k} {d:.3e} / {b:.1e}" for k, (d, b) in
+                      worst.items()))
+    if not all(d <= b for d, b in worst.values()):
+        raise RuntimeError(f"the mesh engine misses one device: {worst}")
+    if not counts["mesh"] == 2 * counts["one"] > 0:
+        raise RuntimeError("the mesh engine did not launch LBS once a shard "
+                           "where one device launched once")
+
+    c0, c1 = setup["crops"]
+    lives = {n: LiveSession(setup["smpl"], setup["gen"], setup["vibe"],
+                            n_streams=2, backbone=setup["backbone"],
+                            outputs=("theta", "verts", "kp_3d"), mesh=m)
+             for n, m in (("one", None), ("mesh", mesh))}
+    pushed, counts = {}, {}
+    for name in ("mesh", "one"):
+        # each session's launches alone: the count is zeroed before its
+        # pushes and read after them
+        lbs.LAUNCHES = 0
+        pushed[name] = [lives[name].push(
+            np.stack([c0[t % len(c0)], c1[t]]),
+            reset=np.array([t == len(c0), False])) for t in range(len(c1))]
+        torch.cuda.synchronize()
+        counts[name] = lbs.LAUNCHES
+    worst = 0.0
+    for t, (a, b) in enumerate(zip(pushed["mesh"], pushed["one"])):
+        if not np.array_equal(a["valid"], b["valid"]):
+            raise RuntimeError(f"live valid differs at t={t}")
+        for k in ("theta", "verts", "kp_3d"):
+            ratio = np.abs(a[k] - b[k]) / (LIVE_TOL["atol"] + LIVE_TOL["rtol"]
+                                           * np.abs(b[k]))
+            worst = max(worst, float(ratio.max()))
+    res["launches"]["live_mesh"] = counts["mesh"]
+    print(f"phase 12c: LiveSession 2 streams over {PAR_DEVICES}, "
+          f"{len(c1)} pushes, slot 0 reset at t={len(c0)}; lbs launches "
+          f"{counts['mesh']} (one device {counts['one']}, phase 6 "
+          f"{p6['launches']}); largest share of the bar (rtol 2e-4, atol "
+          f"2e-5) against one device {worst:.3f}")
+    if not worst <= 1.0:
+        raise RuntimeError("the mesh live session misses one device")
+    if not counts["mesh"] == 2 * counts["one"] == 2 * p6["launches"]:
+        raise RuntimeError("the mesh live session did not launch LBS once a "
+                           "shard where one device launched once")
+
+    rs = np.random.RandomState(12)
+    fe_crops = rs.randint(0, 256, (300, 3, 224, 224)).astype(np.uint8)
+    fa = FeatureExtractor(setup["backbone"], mesh=mesh).features_from_crops(
+        fe_crops)
+    fb = FeatureExtractor(setup["backbone"]).features_from_crops(fe_crops)
+    fd = float(np.abs(fa - fb).max() / np.abs(fb).max())
+    print(f"phase 12c: FeatureExtractor batch 256 over {PAR_DEVICES}, 300 "
+          f"uint8 crops: max |dev| {fd:.3e} of the features' magnitude (bar "
+          f"1e-4)")
+    if not fd <= 1e-4:
+        raise RuntimeError("the mesh extractor misses one device")
+
+    # (d) timings: eval ms per window with the mesh and without
+    rs = np.random.RandomState(3)
+    feats = rs.randn(32, T, 2048).astype(np.float32) * 0.5
+    pseu = np.zeros((32, S - 1, 85), np.float32)
+    pseu[..., 0] = 1.0
+    gt = rs.randn(32, T, 85).astype(np.float32) * 0.2
+    dfe, dps, dgt = (torch.from_numpy(x).to("cuda") for x in (feats, pseu,
+                                                              gt))
+
+    def run_mesh():
+        with device_scope():
+            sharded(feats, pseu, gt, W)
+
+    def run_one():
+        with device_scope():
+            eval_rollout(gen, vibe, smpl, dfe, dps, dgt, jreg, W)
+
+    secs = {"mesh": [], "one": []}
+    for name, fn in (("one", run_one), ("mesh", run_mesh),
+                     ("mesh", run_mesh), ("one", run_one)):
+        secs[name] += host_seconds(fn, reps=2)
+    res["eval_ms_per_window"] = {k: 1e3 * float(np.median(v)) / W
+                                 for k, v in secs.items()}
+    # one host thread queues every shard's kernels: the launches a window
+    # and the device's idle share, with the mesh and without
+    profs = {"one": profile_device(run_one), "mesh": profile_device(run_mesh)}
+    res["eval_profile"] = {k: "not measured" if pr is None else {
+        "kernels_per_window": pr["kernels"] / W,
+        "idle_share": pr["idle_share"]} for k, pr in profs.items()}
+    tr = res["train"]
+    ar1, ar2 = (tr[k]["all_reduce"] for k in ("world1_nccl", "world2_gloo"))
+    print(f"phase 12d: eval rollout B=32 T={T} ({W} windows): "
+          f"{res['eval_ms_per_window']['one']:.3f} ms/window on cuda:0, "
+          f"{res['eval_ms_per_window']['mesh']:.3f} over {PAR_DEVICES} "
+          f"(medians, in turns) [{card}]")
+    print(f"phase 12d: eval rollout B=32, kernels a window and idle share: "
+          f"{json.dumps(res['eval_profile'])} [{card}]")
+    print(f"phase 12d: training batch {DP_N2D}+{DP_N3D}: plain "
+          f"{tr['plain']['ms_per_window']:.2f} ms/window, world 1 NCCL "
+          f"{tr['world1_nccl']['ms_per_window']:.2f} (all-reduce "
+          f"{ar1['share']:.3%} of a traced segment: host "
+          f"{ar1['host_ms']:.2f} ms, NCCL device {ar1['nccl_device_ms']:.2f} "
+          f"ms), world 2 gloo on one card "
+          f"{tr['world2_gloo']['ms_per_window']:.2f} (all-reduce "
+          f"{ar2['share']:.3%}, host {ar2['host_ms']:.2f} ms a segment, "
+          f"rank 0) [{card}]")
+
+    # (e) the training CLI: --devices 1 trains and only the primary writes
+    # the logdir; --devices 2 on a one-card host exits naming the count
+    cfg2 = cfg.clone()
+    cfg2.OUTPUT_DIR = os.path.join(PAR_DIR, "cli")
+    cfg2.TRAIN.END_EPOCH = 1
+    tiny = os.path.join(PAR_DIR, "cli.yaml")
+    with open(tiny, "w") as f:
+        f.write(cfg2.dump())
+    base = [sys.executable, "-m", "tepose_tpu_torch.train", "--synthetic",
+            "--cfg", tiny, "--smoke-iters", "2"]
+    lbs.LAUNCHES = 0
+    runs = {}
+    for n in ("1", str(torch.cuda.device_count() + 1)):
+        t0 = time.perf_counter()
+        p = subprocess.run(base + ["--devices", n], cwd=REPO, text=True,
+                           capture_output=True, timeout=DP_TIMEOUT)
+        runs[n] = (p.returncode, p.stdout + p.stderr,
+                   time.perf_counter() - t0)
+    rc1, log1, s1 = runs["1"]
+    dirs = os.listdir(cfg2.OUTPUT_DIR) if os.path.isdir(
+        cfg2.OUTPUT_DIR) else []
+    files = sorted(os.listdir(os.path.join(cfg2.OUTPUT_DIR, dirs[0]))) \
+        if len(dirs) == 1 else []
+    print(f"phase 12e: train --synthetic --devices 1 --smoke-iters 2: rc "
+          f"{rc1} in {s1:.1f} s, logdirs {dirs}, files {files}")
+    if rc1 or len(dirs) != 1 or "checkpoint.npz" not in files:
+        raise RuntimeError(f"train --devices 1 failed:\n{log1[-4000:]}")
+    n2 = str(torch.cuda.device_count() + 1)
+    rc2, log2, _ = runs[n2]
+    msg = [ln for ln in log2.splitlines() if "visible" in ln]
+    print(f"phase 12e: train --devices {n2}: rc {rc2}, {msg}")
+    if rc2 == 0 or not msg or \
+            f"only {torch.cuda.device_count()} CUDA" not in msg[-1]:
+        raise RuntimeError(f"train --devices {n2} did not exit naming the "
+                           f"visible count:\n{log2[-2000:]}")
+    print(json.dumps({"parallel": res}, default=str))
+    return res
+
+
+def serve_train_timings(card: str) -> None:
+    """`python3 chip_smoke.py --timings`: phases 1, 5 and 7, and phase 8c
+    on a freshly built training loop after one untimed segment; nothing
+    else. The serving and training timings of the tree this script sits
+    in: to compare two trees of the port on one card, put a copy of this
+    script at each tree's root and run them in turns."""
+    from tepose_tpu_torch.config import update_cfg
+    from tepose_tpu_torch.train.run import build_train_loop
+
+    phase1_build()
+    p5 = phase5_engine()
+    phase7_timings(p5, card)
+    cfg = update_cfg(os.path.join(REPO, "configs",
+                                  "repr_wopw_3dpw_model.yaml"))
+    cfg.OUTPUT_DIR = os.path.join(REPO, "build", "chip_smoke_timings")
+    cfg.TRAIN.END_EPOCH = 1
+    loop, _ = build_train_loop(cfg, synthetic=True, smoke_iters=TRAIN_WINDOWS,
+                               device="cuda")
+    loop.train_epoch(0, 1)
+    loop.segment_seconds.clear()
+    train_timings(loop, card)
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--dp-worker"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: torch.cuda.is_available() is "
+                             "False — this script needs a CUDA card")
+        sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
+        return dp_worker(sys.argv[2:])
     card = phase0_device()
     sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
+    if sys.argv[1:2] == ["--timings"]:
+        return serve_train_timings(card)
     phase1_build()
     kern = phase2_kernel(card)
     sl = phase3_slice()
     phase4_golden()
     p5 = phase5_engine()
     p6 = phase6_live(p5)
-    phase7_timings(p5, card)
+    p7 = phase7_timings(p5, card)
     p8 = phase8_train(card)
     p9 = phase9_demo(card)
     p10 = phase10_release(card, p5, p8)
     p11 = phase11_preprocess(card)
+    p12 = phase12_parallel(card, sl, p6, p7)
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
     by_path = {"eval": sl["launches"], "engine": p5["launches"],
                "live": p6["launches"], "train_validation": p8["launches"],
                **p9["launches"], "verify_release": p10["launches"],
-               **p11["launches"]}
+               **p11["launches"], **p12["launches"]}
     for B, r in {**p9["lbs"], **p11["lbs"]}.items():
         kern["device_ms"][B], kern["plain_ms"][B] = r["ms"], r["plain_ms"]
         kern["bound"][B] = (r["bound_ms"], r["bound_by"])

@@ -15,7 +15,11 @@ offline `streaming.engine.StreamingEngine` and the frame-at-a-time
 masked LSGAN loss, the theta-feedback trainer, validation and checkpoints),
 and the host CLI around them: `python -m tepose_tpu_torch.demo` (offline and
 live, with the trackers, 1-euro smoothing, Temporal SMPLify and the native
-rasterizer) and evaluate's `--filter`, `--render` and `--plot`.
+rasterizer) and evaluate's `--filter`, `--render` and `--plot`, the
+release tools, offline DB building, and the scale-out slice (`parallel/`):
+`evaluate --devices`, `StreamingEngine(mesh=)`, `LiveSession(mesh=)` and
+`FeatureExtractor(mesh=)` over a list of devices in one process, and
+data-parallel training over `torch.distributed` behind `train --devices`.
 Every SMPL forward that builds the mesh skins through the LBS kernel, CUDA
 C++ written for sm_90a (`csrc/lbs_skinning.cu`, built by `kernels.py`);
 the train step and SMPLify's objective read the vertex-free joints instead.

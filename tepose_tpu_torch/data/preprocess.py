@@ -8,7 +8,10 @@ uploaded and normalised there. The JAX version's `conv_chunk` (a `lax.map`
 over chunks sized for the TPU's VMEM), its flat-packed weights (for the
 remote link) and its zero-padded last batch (for `jit`'s fixed shapes) have
 no counterpart: each call runs `batch_size` crops, the last one the crops
-that are left. Its `mesh=` waits for the port's scale-out slice.
+that are left. With `mesh=` (a `parallel.mesh.Mesh`) the backbone is
+replicated onto its devices and each batch splits into contiguous blocks,
+one a device (`batch_size` must divide over the mesh), as the JAX
+extractor shards each batch; the features come back in crop order.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from tepose_tpu_torch.models.backbone import (
     FEAT_DIM, ResNet50, normalize_crop, resnet50_features)
 from tepose_tpu_torch.native import crop_normalize
+from tepose_tpu_torch.parallel.mesh import gather_rows, replicate, row_blocks
 from tepose_tpu_torch.streaming.engine import device_scope, upload
 
 
@@ -45,25 +49,41 @@ class FeatureExtractor:
     in strict float32 (TF32 off for cuDNN's convolutions)."""
 
     def __init__(self, backbone: ResNet50, batch_size: int = 256,
-                 crop_size: int = 224):
+                 crop_size: int = 224, mesh=None):
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} must divide over the "
+                             f"{mesh.size}-device mesh")
         self.backbone = backbone
         self.batch_size = batch_size
         self.crop_size = crop_size
         self.device = backbone.stem.w.device
+        # each replica's rows of a batch, as the JAX extractor shards the
+        # (padded) batch: a ragged last batch leaves the later blocks short
+        # or empty
+        self._replicas = ([backbone] if mesh is None
+                          else replicate(backbone, mesh))
+        self._blocks = ([slice(0, batch_size)] if mesh is None
+                        else row_blocks(batch_size, mesh))
 
     def features_from_crops(self, crops: np.ndarray) -> np.ndarray:
         """(N, 3, S, S) -> (N, 2048) float32; uint8 crops normalise on the
-        device. The batches are queued back to back and read back once."""
+        device. The batches are queued back to back, each split over the
+        mesh's devices, and read back once at the end."""
         N, B = len(crops), self.batch_size
+        if N == 0:
+            return np.zeros((0, FEAT_DIM), np.float32)
+        parts = []
         with device_scope():
-            out = torch.empty((N, FEAT_DIM), dtype=torch.float32,
-                              device=self.device)
             for i in range(0, N, B):
-                x = upload(crops[i:i + B], self.device)
-                if x.dtype == torch.uint8:
-                    x = normalize_crop(x)
-                out[i:i + len(x)] = resnet50_features(self.backbone, x)
-            return out.cpu().numpy()
+                batch = crops[i:i + B]
+                for model, rows in zip(self._replicas, self._blocks):
+                    if not len(batch[rows]):
+                        continue
+                    x = upload(batch[rows], model.stem.w.device)
+                    if x.dtype == torch.uint8:
+                        x = normalize_crop(x)
+                    parts.append(resnet50_features(model, x))
+            return gather_rows(parts).numpy()
 
     def extract_from_images(self, image_paths: Sequence[str],
                             bboxes: np.ndarray, scale: float = 1.3,

@@ -2,8 +2,7 @@
 
 Copies of the JAX repository's synthetic DB makers, `synthetic_3d_db` and
 `synthetic_2d_db` (tests/test_datasets.py) and `synthetic_loaders`
-(train.py), single-process, pinned equal to them by
-tests/test_torch_train_loop.py. `python -m tepose_tpu_torch.train
+(train.py), pinned equal to them by tests/test_torch_train_loop.py. `python -m tepose_tpu_torch.train
 --synthetic` trains on them.
 """
 
@@ -50,10 +49,12 @@ def synthetic_2d_db(rng, clips=((12, "x"), (10, "y"), (14, "z"))):
     return db, pse
 
 
-def synthetic_loaders(cfg, seed=0):
+def synthetic_loaders(cfg, seed=0, num_shards=1, shard_index=0):
     """(train_2d, train_3d, motion_disc, valid) loaders over in-memory
     synthetic DBs, sized to the configured batch: the loaders drop
-    incomplete batches, so the DBs hold at least one full batch each."""
+    incomplete batches, so the DBs hold at least one full batch each.
+    Multi-process: the DBs are seed-deterministic, so every process builds
+    the same data and the sharded loaders give it its rows."""
     rs = np.random.RandomState(seed)
     vl = cfg.DATASET.VIDLEN
     sl = cfg.DATASET.SEQLEN
@@ -78,4 +79,5 @@ def synthetic_loaders(cfg, seed=0):
             ("mpii3d", "h36m", "human36m", "3dpw", "threedpw")}
     over.update({"posetrack": (db2, pse2), "insta": (db2, pse2),
                  "amass": (amass, None)})
-    return get_data_loaders(cfg, db_overrides=over)
+    return get_data_loaders(cfg, db_overrides=over, num_shards=num_shards,
+                            shard_index=shard_index)

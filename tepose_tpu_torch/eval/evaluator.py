@@ -13,7 +13,9 @@
 
 The JAX `lax.scan` becomes a Python loop; every SMPL forward, in the
 windows and in the GT rebuild, skins through the CUDA kernel on a CUDA
-device. `EvalAccumulator` and `spin49_to_eval_format` are numpy copies of
+device. `make_sharded_eval_rollout` is the counterpart of
+`make_sharded_eval_scan`: videos split over a `parallel.mesh.Mesh`, one
+replica a device, no collectives. `EvalAccumulator` and `spin49_to_eval_format` are numpy copies of
 the JAX package's, pinned equal to them by tests/test_torch_eval.py.
 """
 
@@ -29,6 +31,8 @@ from tepose_tpu_torch.data.kp_utils import convert_kps, perm_idxs
 from tepose_tpu_torch.eval import metrics as M
 from tepose_tpu_torch.models.smpl import SmplModel, smpl_forward
 from tepose_tpu_torch.models.tepose import TePose, Vibe
+from tepose_tpu_torch.parallel.mesh import (
+    Mesh, gather_rows, replicate, shard_batch)
 
 
 def _vertex_error(pred_verts: torch.Tensor,
@@ -89,6 +93,29 @@ def eval_rollout(gen: TePose, vibe: Vibe, smpl: SmplModel,
                                 dim=1),
         "mpvpe": torch.cat([boot_mpvpe, torch.stack(mpvpe, dim=1)], dim=1),
     }
+
+
+def make_sharded_eval_rollout(gen: TePose, vibe: Vibe, smpl: SmplModel,
+                              j_regressor: Optional[torch.Tensor],
+                              mesh: Mesh):
+    """Mesh-parallel eval rollout: videos split over the mesh's devices.
+
+    Each video's theta-feedback chain is independent (no BN, no cross-video
+    coupling), so every device runs its contiguous block of rows through
+    `eval_rollout` on its own replica of the weights and SMPL buffers (each
+    replica skins on its own device) with no collectives. Returns
+    fn(feats, theta_pseu, theta_gt, num_windows) -> the `eval_rollout`
+    outputs on the host, rows in input order; B must divide over the mesh.
+    The shards are queued device by device before any is read back."""
+    replicas = replicate((gen, vibe, smpl, j_regressor), mesh)
+
+    def fn(feats, theta_pseu, theta_gt, num_windows: int):
+        shards = shard_batch((feats, theta_pseu, theta_gt), mesh)
+        outs = [eval_rollout(g, v, s, f, p, t, jr, num_windows)
+                for (g, v, s, jr), (f, p, t) in zip(replicas, shards)]
+        return {k: gather_rows([o[k] for o in outs]) for k in outs[0]}
+
+    return fn
 
 
 @dataclasses.dataclass

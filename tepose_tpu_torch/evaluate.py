@@ -15,7 +15,10 @@ strict float32 (TF32 off); `--precision` accepts only `float32`.
 H36M J14 joints on the device (`filter_video_predictions`), `--plot`
 saves the acceleration-error figure and `--render` / `--render_plain`
 overlay each video's rebuilt mesh with the native rasterizer, as the JAX
-CLI does. `--devices` belongs to the scale-out slice and raises.
+CLI does. `--devices N|auto` evaluates each batch split over N devices
+(`eval.evaluator.make_sharded_eval_rollout`, one process, one replica a
+device), the batch rounded up to a multiple of N; with `--gpu cpu` the
+devices are N copies of the CPU.
 """
 
 from __future__ import annotations
@@ -177,15 +180,35 @@ def filter_video_predictions(smpl, pred_theta: np.ndarray,
                                    subset=H36M_TO_J14).cpu().numpy()
 
 
+def eval_mesh(devices, device: torch.device | str):
+    """The `parallel.mesh.Mesh` of `--devices`: None for 1 (or None), a
+    given Mesh as it is, N CUDA devices (`auto`: every visible one) on a
+    CUDA `device`, N copies of the CPU on the CPU."""
+    from tepose_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    if devices is None or isinstance(devices, Mesh):
+        return devices
+    cpu = torch.device(device).type == "cpu"
+    if devices == "auto":
+        devices = 1 if cpu else torch.cuda.device_count()
+    n = int(devices)
+    if n == 1:
+        return None
+    return make_mesh(devices=["cpu"] * n) if cpu else make_mesh(n)
+
+
 def run_eval(cfg, args, synthetic: bool = False, *,
-             device: torch.device | str) -> Dict[str, float]:
+             device: torch.device | str, devices=None) -> Dict[str, float]:
     """Evaluate on `device`; returns the metric summary (mm) plus `frames`
-    (poses evaluated) and `seconds` (wall time of the eval loop)."""
+    (poses evaluated) and `seconds` (wall time of the eval loop).
+    `devices` (an int, "auto" or a `parallel.mesh.Mesh`, see `eval_mesh`)
+    splits every batch over a mesh."""
     from tepose_tpu_torch.data.db import (
         eval_db_paths, key_eval_db_by_video, load_db, load_pseudotheta)
     from tepose_tpu_torch.data.kp_utils import convert_kps
     from tepose_tpu_torch.eval.evaluator import (
-        EvalAccumulator, eval_rollout, spin49_to_eval_format)
+        EvalAccumulator, eval_rollout, make_sharded_eval_rollout,
+        spin49_to_eval_format)
 
     strict_f32()
     dataset = args.dataset
@@ -196,6 +219,11 @@ def run_eval(cfg, args, synthetic: bool = False, *,
     smpl, gen, vibe, j_regressor = build_models(cfg, synthetic, device)
     S = gen.cfg.seqlen
     jreg = j_regressor if dataset != "mpii3d" else None
+    mesh = eval_mesh(devices, device)
+    if mesh is not None:
+        print(f"=> data-parallel eval over {mesh.size} devices: "
+              f"{[str(d) for d in mesh.devices]}")
+        sharded = make_sharded_eval_rollout(gen, vibe, smpl, jreg, mesh)
 
     if synthetic:
         data = synthetic_eval_data()
@@ -226,11 +254,19 @@ def run_eval(cfg, args, synthetic: bool = False, *,
         for i in range(0, len(vids), MAX_B):
             chunk = vids[i:i + MAX_B]
             B = 1 << max(len(chunk) - 1, 0).bit_length()
-            batch = {k: torch.from_numpy(v).to(device) for k, v in
-                     make_eval_batch(data, chunk, S, T_pad, B).items()}
-            out = eval_rollout(gen, vibe, smpl, batch["feats"],
-                               batch["theta_pseu"], batch["theta_gt"], jreg,
-                               W)
+            if mesh is not None:
+                # a multiple of the device count, so the rows split evenly
+                # (pad rows are independent)
+                B = -(-B // mesh.size) * mesh.size
+                batch = make_eval_batch(data, chunk, S, T_pad, B)
+                out = sharded(batch["feats"], batch["theta_pseu"],
+                              batch["theta_gt"], W)
+            else:
+                batch = {k: torch.from_numpy(v).to(device) for k, v in
+                         make_eval_batch(data, chunk, S, T_pad, B).items()}
+                out = eval_rollout(gen, vibe, smpl, batch["feats"],
+                                   batch["theta_pseu"], batch["theta_gt"],
+                                   jreg, W)
             pred_j3d = out["pred_j3d"].cpu().numpy()
             pred_theta = out["pred_theta"].cpu().numpy()
             mpvpe = out["mpvpe"].cpu().numpy()
@@ -351,9 +387,19 @@ def main():
     synthetic = "--synthetic" in sys.argv
     if synthetic:
         sys.argv.remove("--synthetic")
+    devices = None
     if "--devices" in sys.argv:
-        raise SystemExit("--devices is not ported to tepose_tpu_torch yet; "
-                         "the port evaluates on one device")
+        i = sys.argv.index("--devices")
+        if i + 1 >= len(sys.argv):
+            raise SystemExit("--devices needs a value (an integer or 'auto')")
+        devices = sys.argv[i + 1]
+        del sys.argv[i:i + 2]
+        if devices != "auto":
+            try:
+                devices = int(devices)
+            except ValueError:
+                raise SystemExit(f"--devices expects an integer or 'auto', "
+                                 f"got {devices!r}")
     if "--precision" in sys.argv:
         i = sys.argv.index("--precision")
         precision = sys.argv[i + 1] if i + 1 < len(sys.argv) else None
@@ -364,7 +410,12 @@ def main():
         del sys.argv[i:i + 2]
     cfg, _, args = parse_args()
     device = gpu_device(args.gpu)
-    return run_eval(cfg, args, synthetic=synthetic, device=device)
+    try:
+        mesh = eval_mesh(devices, device)
+    except ValueError as e:
+        raise SystemExit(f"--devices {devices}: {e}")
+    return run_eval(cfg, args, synthetic=synthetic, device=device,
+                    devices=mesh)
 
 
 if __name__ == "__main__":

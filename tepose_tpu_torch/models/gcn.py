@@ -19,7 +19,12 @@ torch's BatchNorm cannot do what `bn_apply` does, so `MaskedBatchNorm`
 does it: statistics over the rows of `row_mask` only, the running
 variance's unbiased factor from the masked count, and running statistics
 left as they are when every row is masked. The update is written with
-`torch.where`, so a CUDA caller never waits on the mask's count.
+`torch.where`, so a CUDA caller never waits on the mask's count. In a
+data-parallel segment (`parallel/dp.py`) the masked sums and the row count
+are summed over every process's rows, with gradients, as `SyncBatchNorm`
+does and as GSPMD does for the JAX module under a mesh; stock
+`SyncBatchNorm` has no row mask. The unmasked statistics stay local (the
+training step always passes a mask).
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from torch import nn
 
 from tepose_tpu_torch.models.graph import (
     multi_scale_adjacency, smpl_graph_binary, spatial_temporal_adjacency)
+from tepose_tpu_torch.parallel.distributed import (
+    reducing_world, sum_across_with_grad)
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -70,9 +77,17 @@ class MaskedBatchNorm(nn.Module):
             m = row_mask.float().reshape((-1,) + (1,) * (x.dim() - 1))
             per_row = x.numel() / (x.shape[0] * x.shape[1])
             cnt = row_mask.float().sum()
+            total = (x * m).sum(dim=axes)
+            if reducing_world() > 1:
+                # under a data-parallel segment the sums cover every
+                # process's rows, gradients included: one all-reduce for
+                # the sums and the count
+                sums = sum_across_with_grad(torch.cat([total, cnt[None]]))
+                total, cnt = sums[:-1], sums[-1].detach()
             n = torch.clamp(cnt * per_row, min=1.0)
-            mean = (x * m).sum(dim=axes) / n
-            var = (((x - mean.reshape(shape)) ** 2) * m).sum(dim=axes) / n
+            mean = total / n
+            var = sum_across_with_grad(
+                (((x - mean.reshape(shape)) ** 2) * m).sum(dim=axes)) / n
             unbiased = var * n / torch.clamp(n - 1, min=1.0)
             # all rows masked: the reference skips the forward, so the
             # running statistics must not move

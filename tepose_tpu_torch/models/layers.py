@@ -44,15 +44,48 @@ def make_linear(in_dim: int, out_dim: int, *, generator: torch.Generator,
     return lin
 
 
-def dropout(x: torch.Tensor, p: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout drawn from `generator` (on x's device): each element
-    kept with probability 1 - p and scaled by 1 / (1 - p), as
-    `tepose_tpu/models/layers.py::dropout`. With no generator it is off,
-    the contract of the JAX regressor's `rng=None`."""
+class RowDraws:
+    """Uniform draws for this process's rows of a global batch.
+
+    Each draw takes the global batch's shape from `generator` (seeded alike
+    on every process of a data-parallel group) and keeps `rows`, this
+    process's row indices in it (a tensor on the draws' device), so the
+    processes together draw what one device draws for the whole batch. A
+    tensor whose leading axis holds k entries a batch row (the regressor's
+    two encoder branches) draws (n_global * k, ...) and keeps those rows'
+    entries."""
+
+    def __init__(self, generator: torch.Generator, rows: torch.Tensor,
+                 n_global: int):
+        self.generator = generator
+        self.rows = rows
+        self.n_global = n_global
+
+    def rand(self, shape, device) -> torch.Tensor:
+        shape = tuple(shape)
+        k = shape[0] // len(self.rows)
+        full = torch.rand((self.n_global * k,) + shape[1:],
+                          generator=self.generator, device=device)
+        return full.reshape((self.n_global, k) + shape[1:])[
+            self.rows].reshape(shape)
+
+
+def uniform(shape, generator, device) -> torch.Tensor:
+    """U[0, 1) of `shape` from a `torch.Generator` or a `RowDraws`."""
+    if isinstance(generator, RowDraws):
+        return generator.rand(shape, device)
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def dropout(x: torch.Tensor, p: float, generator) -> torch.Tensor:
+    """Inverted dropout drawn from `generator` (a `torch.Generator` on x's
+    device, or a `RowDraws`): each element kept with probability 1 - p and
+    scaled by 1 / (1 - p), as `tepose_tpu/models/layers.py::dropout`. With
+    no generator it is off, the contract of the JAX regressor's
+    `rng=None`."""
     if generator is None or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = uniform(x.shape, generator, x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

@@ -43,12 +43,12 @@ def cam2pixel(cam, f, c):
 
 
 def read_data(dataset_path: str, split: str = "train",
-              variant: str = "tight", backbone=None, *,
+              variant: str = "tight", backbone=None, mesh=None, *,
               device: torch.device | str = "cuda"):
     """The split's DB; `backbone` defaults to the converted SPIN ResNet-50
-    on `device`."""
+    on `device`; `mesh` splits each feature batch over its devices."""
     extractor = FeatureExtractor(backbone if backbone is not None
-                                 else load_backbone(device))
+                                 else load_backbone(device), mesh=mesh)
     bbox_expand = 0.9 if variant == "tight" else 1.1
     crop_scale = 1.0 if variant == "tight" else 1.2
 

@@ -326,16 +326,17 @@ def decode_rgb(buf: bytes) -> np.ndarray:
 
 
 def read_data(folder: str, out_path: str = None, backbone=None,
-              verify_crc: bool = True, *,
+              mesh=None, verify_crc: bool = True, *,
               device: torch.device | str = "cuda", decode=None) -> str:
     """Write `out_path` (default `<TEPOSE_DB_DIR>/insta_train_db.h5`).
     `backbone` defaults to the converted SPIN ResNet-50 on `device`,
-    `decode(bytes)` to OpenCV (RGB uint8)."""
+    `decode(bytes)` to OpenCV (RGB uint8); `mesh` splits each feature
+    batch over its devices."""
     import h5py
 
     decode = decode or decode_rgb
     extractor = FeatureExtractor(backbone if backbone is not None
-                                 else load_backbone(device))
+                                 else load_backbone(device), mesh=mesh)
     out_path = out_path or osp.join(TePose_DB_DIR, "insta_train_db.h5")
     records = sorted(glob.glob(osp.join(folder, "train", "*.tfrecord")))
     if not records:

@@ -38,14 +38,14 @@ def bbox_from_kp2d(kp: np.ndarray) -> np.ndarray:
                     np.float32)
 
 
-def read_train_data(dataset_path: str, backbone=None, *,
+def read_train_data(dataset_path: str, backbone=None, mesh=None, *,
                     device: torch.device | str = "cuda"):
     """The train DB; `backbone` defaults to the converted SPIN ResNet-50
-    on `device`."""
+    on `device`; `mesh` splits each feature batch over its devices."""
     import scipy.io as sio
 
     extractor = FeatureExtractor(backbone if backbone is not None
-                                 else load_backbone(device))
+                                 else load_backbone(device), mesh=mesh)
     dataset = {k: [] for k in
                ("vid_name", "frame_id", "joints3D", "joints2D", "bbox",
                 "img_name", "features")}
@@ -112,13 +112,13 @@ def read_train_data(dataset_path: str, backbone=None, *,
     return concatenate_db(dataset)
 
 
-def read_test_data(dataset_path: str, backbone=None, *,
+def read_test_data(dataset_path: str, backbone=None, mesh=None, *,
                    device: torch.device | str = "cuda"):
     """The test (val) DB, as `read_train_data`."""
     import h5py
 
     extractor = FeatureExtractor(backbone if backbone is not None
-                                 else load_backbone(device))
+                                 else load_backbone(device), mesh=mesh)
     dataset = {k: [] for k in
                ("vid_name", "frame_id", "joints3D", "joints2D", "bbox",
                 "img_name", "features", "valid_i")}

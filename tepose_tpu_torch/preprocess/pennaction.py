@@ -27,14 +27,14 @@ from tepose_tpu_torch.preprocess.common import (
     add_gpu_arg, concatenate_db, load_backbone)
 
 
-def read_data(folder: str, backbone=None, *,
+def read_data(folder: str, backbone=None, mesh=None, *,
               device: torch.device | str = "cuda"):
     """The DB; `backbone` defaults to the converted SPIN ResNet-50 on
-    `device`."""
+    `device`; `mesh` splits each feature batch over its devices."""
     from scipy.io import loadmat
 
     extractor = FeatureExtractor(backbone if backbone is not None
-                                 else load_backbone(device))
+                                 else load_backbone(device), mesh=mesh)
     dataset = {k: [] for k in
                ("img_name", "joints2D", "bbox", "vid_name", "features")}
 

@@ -38,12 +38,12 @@ POSETRACK_ORIGINAL_KP = [
 ]
 
 
-def read_data(folder: str, split: str, backbone=None, *,
+def read_data(folder: str, split: str, backbone=None, mesh=None, *,
               device: torch.device | str = "cuda"):
     """The split's DB; `backbone` defaults to the converted SPIN ResNet-50
-    on `device`."""
+    on `device`; `mesh` splits each feature batch over its devices."""
     extractor = FeatureExtractor(backbone if backbone is not None
-                                 else load_backbone(device))
+                                 else load_backbone(device), mesh=mesh)
     dataset = {k: [] for k in
                ("img_name", "joints2D", "bbox", "vid_name", "features")}
 

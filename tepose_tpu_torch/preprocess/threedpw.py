@@ -43,11 +43,12 @@ MIN_KP = 6
 
 
 def read_data(folder: str, split: str, occluders=None, backbone=None,
-              smpl=None, j_regressor=None, *,
+              smpl=None, j_regressor=None, mesh=None, *,
               device: torch.device | str = "cuda", imread=None):
     """The split's DB. `backbone` and `smpl` default to the converted
     assets loaded on `device`; `imread(path)` reads a frame as RGB uint8
-    (default: OpenCV, see `FeatureExtractor.extract_from_images`)."""
+    (default: OpenCV, see `FeatureExtractor.extract_from_images`); `mesh`
+    (a `parallel.mesh.Mesh`) splits each feature batch over its devices."""
     device = torch.empty(0, device=device).device   # "cuda" -> cuda:<current>
     backbone = backbone if backbone is not None else load_backbone(device)
     smpl = smpl if smpl is not None else load_smpl(device=device)
@@ -57,7 +58,7 @@ def read_data(folder: str, split: str, occluders=None, backbone=None,
         j_regressor = load_h36m_regressor()
     jreg = (torch.as_tensor(np.asarray(j_regressor, np.float32),
                             device=device) if use_j14 else None)
-    extractor = FeatureExtractor(backbone)
+    extractor = FeatureExtractor(backbone, mesh=mesh)
 
     dataset = {k: [] for k in
                ("vid_name", "frame_id", "joints3D", "joints2D", "shape",

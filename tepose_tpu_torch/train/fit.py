@@ -6,10 +6,18 @@ over (2D batch, 3D batch) pairs runs one `train.trainer.train_segment` of
 `num_iters_per_epoch` windows each, then validation, `ReduceLROnPlateau` on
 PA-MPJPE for both optimizers, and a checkpoint (+ best copy). The
 parameters live on the device as the modules' own; the JAX loop's
-FlatPacker carry, AOT compile and coordination barriers have no
-counterpart. With `cfg.DEBUG`, every `DEBUG_FREQ`-th segment writes a
-prediction-overlay mp4 of its 3D batch (`_debug_visualize`, cv2 and
-`utils/vis.py`), as the JAX loop does.
+FlatPacker carry and AOT compile have no counterpart. With `cfg.DEBUG`,
+every `DEBUG_FREQ`-th segment writes a prediction-overlay mp4 of its 3D
+batch (`_debug_visualize`, cv2 and `utils/vis.py`), as the JAX loop does.
+
+In a multi-process run (`parallel/distributed.py`) each process trains on
+its rows through `parallel.dp.sharded_train_segment`, from rank 0's
+weights; the loaders hand it its rows and `_amass_windows` keeps its
+`batch_size/P` AMASS rows. The primary alone writes checkpoints,
+`best.txt` and debug renders, and a barrier follows every checkpoint, so a
+NaNGuard rollback on any process never reads a half-written file. Every
+process validates every video and takes the primary's metrics, so
+`best_performance` and the plateau schedulers agree everywhere.
 """
 
 from __future__ import annotations
@@ -21,6 +29,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from tepose_tpu_torch.parallel import distributed
+from tepose_tpu_torch.parallel.dp import (
+    replicate_from_primary, sharded_train_segment)
 from tepose_tpu_torch.train import checkpoint as ckpt
 from tepose_tpu_torch.train.optim import ReduceLROnPlateau, get_lr, set_lr
 from tepose_tpu_torch.train.trainer import train_segment
@@ -62,6 +73,10 @@ class TrainLoop:
             device=smpl.v_template.device).manual_seed(max(seed, 0))
         self.global_step = 0
         self.segment_seconds = []
+        self.segment = train_segment
+        if distributed.process_count() > 1:
+            replicate_from_primary(gen, disc)
+            self.segment = sharded_train_segment
 
         if cfg.TRAIN.RESUME:
             self.resume(cfg.TRAIN.RESUME)
@@ -71,11 +86,12 @@ class TrainLoop:
     def _amass_windows(self, disc_iter, num_iters: int,
                        batch_size: int) -> np.ndarray:
         """(num_iters, B, S, 85) real-motion windows for a segment, one
-        AMASS batch per window."""
-        out = np.zeros((num_iters, batch_size, self.hp.seqlen, 85),
-                       np.float32)
+        AMASS batch per window. Multi-process: the disc loader is sharded,
+        so this process keeps its `batch_size/P` rows."""
+        local = batch_size // distributed.process_count()
+        out = np.zeros((num_iters, local, self.hp.seqlen, 85), np.float32)
         for i in range(num_iters):
-            out[i] = next(disc_iter)["theta"][:batch_size]
+            out[i] = next(disc_iter)["theta"][:local]
         return out
 
     def train_epoch(self, epoch: int, num_outer: int) -> Dict[str, float]:
@@ -89,7 +105,7 @@ class TrainLoop:
             amass = self._amass_windows(itd, self.num_iters,
                                         self.hp.n_2d + self.hp.n_3d)
             ts = time.perf_counter()
-            metrics = train_segment(
+            metrics = self.segment(
                 self.gen, self.disc, self.smpl, self.gen_opt, self.disc_opt,
                 self.hp, self.weights, b2, b3, amass, self.generator)
             self.segment_seconds.append(time.perf_counter() - ts)
@@ -123,7 +139,10 @@ class TrainLoop:
         predicted skeleton and mesh with the GT skeleton (ref: trainer.py:
         272-279 -> vis.py:330-382; without image crops in the feature-based
         batches, overlays draw on blank canvases). Writes
-        debug_epochEEE_stepSSSSSS.mp4 under the log directory."""
+        debug_epochEEE_stepSSSSSS.mp4 under the log directory (the
+        primary's file)."""
+        if not distributed.is_primary():
+            return
         try:
             import cv2
 
@@ -182,10 +201,12 @@ class TrainLoop:
         self.logger.info(f"NaNGuard: restored parameters from '{path}'")
 
     def validate(self) -> Dict[str, float]:
-        return validate_epoch(
+        """Every video on this process's device; the primary's metrics on
+        every process."""
+        return distributed.broadcast_object(validate_epoch(
             self.gen, self.smpl, self.valid, self.j_regressor,
             self.hp.seqlen,
-            max_batches=self.max_valid_batches or len(self.valid))
+            max_batches=self.max_valid_batches or len(self.valid)))
 
     # ---------------------------------------------------------------- fit
 
@@ -215,17 +236,21 @@ class TrainLoop:
         is_best = performance < self.best_performance
         if is_best:
             self.best_performance = performance
-        ckpt.save_checkpoint(
-            path, ckpt.training_trees(self.gen, self.disc, self.gen_opt,
-                                      self.disc_opt),
-            {"epoch": epoch, "performance": self.best_performance,
-             "gen_sched": self.gen_sched.state_dict(),
-             "disc_sched": self.disc_sched.state_dict()})
-        if is_best:
-            self.logger.info("Best performance achieved, saving it!")
-            ckpt.mark_best(self.logdir)
-            with open(osp.join(self.logdir, "best.txt"), "w") as f:
-                f.write(str(float(performance)))
+        if distributed.is_primary():
+            ckpt.save_checkpoint(
+                path, ckpt.training_trees(self.gen, self.disc, self.gen_opt,
+                                          self.disc_opt),
+                {"epoch": epoch, "performance": self.best_performance,
+                 "gen_sched": self.gen_sched.state_dict(),
+                 "disc_sched": self.disc_sched.state_dict()})
+            if is_best:
+                self.logger.info("Best performance achieved, saving it!")
+                ckpt.mark_best(self.logdir)
+                with open(osp.join(self.logdir, "best.txt"), "w") as f:
+                    f.write(str(float(performance)))
+        # readers (NaNGuard rollback on any process) must never see a
+        # half-written checkpoint
+        distributed.barrier("checkpoint_saved")
 
     def resume(self, path: str) -> None:
         if not osp.isfile(path):

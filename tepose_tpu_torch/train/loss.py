@@ -6,6 +6,14 @@ masked means instead: sum(x * rowmask) / (count(rowmask) * per-row
 elements), which equals the mean over the kept rows and keeps every shape
 static. The discriminator takes the same row mask for its BatchNorm
 statistics (`models.gcn.MaskedBatchNorm`).
+
+In a data-parallel segment (`parallel/dp.py`) each process holds some of
+the rows. Every count a mean divides by is then the global one
+(`sum_across`, no gradient), so each process's term is its own rows' sum
+over the global count; the terms add up to the single-device loss, and
+gradients are summed across processes, not averaged. The |mean| smoothness
+terms, which do not split into per-process sums, take the global mean
+with its gradient and count 1/P of it on each process.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from tepose_tpu_torch.ops.geometry import batch_rodrigues
+from tepose_tpu_torch.parallel.distributed import (
+    reducing_world, sum_across, sum_across_with_grad)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +49,7 @@ def _masked_row_mean(err: torch.Tensor,
     mask is empty (the reference skips the term then)."""
     m = row_mask.to(err.dtype)
     per_row = err.reshape(err.shape[0], -1).mean(dim=1)
-    count = m.sum()
+    count = sum_across(m.sum())
     return _where_any(count, (per_row * m).sum() / torch.clamp(count, min=1.0))
 
 
@@ -85,8 +95,9 @@ def encoder_disc_l2_loss(disc_value: torch.Tensor,
                          row_mask: torch.Tensor) -> torch.Tensor:
     """Generator-side LSGAN loss sum((D-1)^2)/k."""
     m = row_mask.to(disc_value.dtype)
-    k = torch.clamp(m.sum(), min=1.0)
-    return _where_any(m.sum(), (((disc_value - 1.0) ** 2) * m).sum() / k)
+    count = sum_across(m.sum())
+    k = torch.clamp(count, min=1.0)
+    return _where_any(count, (((disc_value - 1.0) ** 2) * m).sum() / k)
 
 
 def adv_disc_l2_loss(real_value: torch.Tensor, fake_value: torch.Tensor,
@@ -94,10 +105,11 @@ def adv_disc_l2_loss(real_value: torch.Tensor, fake_value: torch.Tensor,
     """Discriminator-side LSGAN losses: (loss_real, loss_fake, total)."""
     mr = real_mask.to(real_value.dtype)
     mf = fake_mask.to(fake_value.dtype)
-    ka = torch.clamp(mr.sum(), min=1.0)
-    kb = torch.clamp(mf.sum(), min=1.0)
-    la = _where_any(mr.sum(), (((real_value - 1.0) ** 2) * mr).sum() / ka)
-    lb = _where_any(mf.sum(), ((fake_value ** 2) * mf).sum() / kb)
+    ca, cb = sum_across(mr.sum()), sum_across(mf.sum())
+    ka = torch.clamp(ca, min=1.0)
+    kb = torch.clamp(cb, min=1.0)
+    la = _where_any(ca, (((real_value - 1.0) ** 2) * mr).sum() / ka)
+    lb = _where_any(cb, ((fake_value ** 2) * mf).sum() / kb)
     return la, lb, la + lb
 
 
@@ -106,8 +118,9 @@ def encoder_disc_wasserstein_loss(disc_value: torch.Tensor,
     """Generator-side Wasserstein loss -sum(D)/k (defined, unused by the
     reference's TePoseLoss)."""
     m = row_mask.to(disc_value.dtype)
-    k = torch.clamp(m.sum(), min=1.0)
-    return _where_any(m.sum(), -(disc_value * m).sum() / k)
+    count = sum_across(m.sum())
+    k = torch.clamp(count, min=1.0)
+    return _where_any(count, -(disc_value * m).sum() / k)
 
 
 def adv_disc_wasserstein_loss(real_value: torch.Tensor,
@@ -118,30 +131,44 @@ def adv_disc_wasserstein_loss(real_value: torch.Tensor,
     (defined, unused by the reference's TePoseLoss)."""
     mr = real_mask.to(real_value.dtype)
     mf = fake_mask.to(fake_value.dtype)
-    ka = torch.clamp(mr.sum(), min=1.0)
-    kb = torch.clamp(mf.sum(), min=1.0)
-    la = _where_any(mr.sum(), -(real_value * mr).sum() / ka)
-    lb = _where_any(mf.sum(), (fake_value * mf).sum() / kb)
+    ca, cb = sum_across(mr.sum()), sum_across(mf.sum())
+    ka = torch.clamp(ca, min=1.0)
+    kb = torch.clamp(cb, min=1.0)
+    la = _where_any(ca, -(real_value * mr).sum() / ka)
+    lb = _where_any(cb, (fake_value * mf).sum() / kb)
     return la, lb, la + lb
+
+
+def _abs_mean(diff: torch.Tensor,
+              row_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """|mean(diff)| over all rows or the rows of `row_mask`. In a
+    data-parallel segment the mean is the global one (its gradient reaches
+    every process's rows) and each process counts 1/P of |mean|."""
+    if reducing_world() == 1:
+        if row_mask is None:
+            return diff.mean().abs()
+        return _masked_row_mean(diff, row_mask).abs()
+    if row_mask is None:
+        mean = diff.sum() / sum_across(
+            torch.tensor(float(diff.numel()), device=diff.device))
+    else:
+        mean = _masked_row_mean(diff, row_mask)
+    return sum_across_with_grad(mean).abs() / reducing_world()
 
 
 def smooth_pose_loss(pred_theta: torch.Tensor,
                      row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """|mean(temporal pose diffs)| (the abs of the mean, as the reference;
     defined, unused). pred_theta (N, T, 85)."""
-    diff = pred_theta[:, 1:, 3:75] - pred_theta[:, :-1, 3:75]
-    if row_mask is None:
-        return diff.mean().abs()
-    return _masked_row_mean(diff, row_mask).abs()
+    return _abs_mean(pred_theta[:, 1:, 3:75] - pred_theta[:, :-1, 3:75],
+                     row_mask)
 
 
 def smooth_shape_loss(pred_theta: torch.Tensor,
                       row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """|mean(temporal shape diffs)| (defined, unused)."""
-    diff = pred_theta[:, 1:, 75:] - pred_theta[:, :-1, 75:]
-    if row_mask is None:
-        return diff.mean().abs()
-    return _masked_row_mean(diff, row_mask).abs()
+    return _abs_mean(pred_theta[:, 1:, 75:] - pred_theta[:, :-1, 75:],
+                     row_mask)
 
 
 def tepose_loss(
@@ -158,6 +185,7 @@ def tepose_loss(
     real_motion: torch.Tensor,
     disc_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     weights: LossWeights = LossWeights(),
+    real_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Generator + discriminator loss of one window step.
 
@@ -168,7 +196,10 @@ def tepose_loss(
     (B, S-1, 85), detached by the caller; real_motion (B, S, 85);
     disc_fn(x (N, T, 72), mask (N,)) -> (N,), called three times in order:
     the generator's adversarial pass, the fake pass on detached motion, the
-    real pass. Returns (gen_loss, motion_disc_loss, loss_dict).
+    real pass. `real_mask` masks the real motion's rows in the real pass
+    (default: the generator rows' GAN mask, row for row); a data-parallel
+    process holds other AMASS rows than generator rows and passes the mask
+    of its AMASS rows. Returns (gen_loss, motion_disc_loss, loss_dict).
     """
     def merge(x):
         return x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])
@@ -209,9 +240,11 @@ def tepose_loss(
 
     fake_motion = pred_motion.detach()
     disc_fake = disc_fn(fake_motion[:, :, 3:75], motion_mask)
-    disc_real = disc_fn(real_motion[:, :, 3:75], motion_mask)
+    if real_mask is None:
+        real_mask = motion_mask
+    disc_real = disc_fn(real_motion[:, :, 3:75], real_mask)
     d_real, d_fake, d_loss = adv_disc_l2_loss(
-        disc_real, disc_fake, motion_mask, motion_mask)
+        disc_real, disc_fake, real_mask, motion_mask)
 
     loss_dict = {
         "loss_kp_2d": loss_kp_2d,

@@ -4,7 +4,7 @@ Counterpart of the repository's `train.py` (JAX):
 
   python -m tepose_tpu_torch.train --cfg configs/repr_wopw_3dpw_model.yaml
   python -m tepose_tpu_torch.train --cfg ... --synthetic   # generated data
-      [--smoke-iters N] [--smoke-verts V] [--gpu 0|cpu]
+      [--smoke-iters N] [--smoke-verts V] [--gpu 0|cpu] [--devices N|auto]
 
 `run_train(cfg, ...)` is what the CLI calls: TePose with the fast encoder
 (as `train.py` builds it) from `torch.Generator().manual_seed(0)`, the GCN
@@ -13,25 +13,37 @@ motion discriminator from seed 1, the regressor warm-started from
 DBs with `--synthetic`), both optimizers, and `train.fit.TrainLoop.fit`.
 Matmuls and cuDNN run in strict float32; `--precision` accepts `float32`
 only. `--profile DIR` records `loop.fit` with `torch.profiler`
-(`utils.profiling.trace`) into DIR. `--devices` is not ported and raises.
-With `cfg.DEBUG` the loop writes prediction-overlay videos, drawing the
+(`utils.profiling.trace`) into DIR. With `cfg.DEBUG` the loop writes prediction-overlay videos, drawing the
 mesh with the SMPL assets' faces, or for the synthetic model a triangle
 soup over its vertices, as `train.py` does.
+
+Data-parallel training runs one process per device over
+`torch.distributed` (`parallel/distributed.py`, `parallel/dp.py`):
+`--devices N` (`auto`: every visible CUDA device) starts N ranks of this
+CLI on this host, rank r on cuda:r over NCCL (with `--gpu cpu`, N CPU
+ranks over gloo); the `TEPOSE_COORDINATOR` / `TEPOSE_NUM_PROCESSES` /
+`TEPOSE_PROCESS_ID` environment joins a launch of its own, across hosts
+too (rank r on cuda:(r mod the visible count)). Each rank loads its rows
+of every batch (the loaders' `num_shards`); the 2D and 3D batch splits
+must divide by the number of ranks (`parallel.dp.check_divisible`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import os.path as osp
+import socket
+import subprocess
 import sys
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from tepose_tpu_torch.evaluate import strict_f32, synthetic_j_regressor
-
-UNPORTED_FLAGS = ("--devices",)
+from tepose_tpu_torch.parallel import distributed
 
 
 def build_train_loop(cfg, *, synthetic: bool = False,
@@ -51,6 +63,7 @@ def build_train_loop(cfg, *, synthetic: bool = False,
     from tepose_tpu_torch.train.fit import TrainLoop
     from tepose_tpu_torch.train.loss import LossWeights
     from tepose_tpu_torch.train.optim import make_optimizer
+    from tepose_tpu_torch.parallel.dp import check_divisible
     from tepose_tpu_torch.train.trainer import TrainHyper
     from tepose_tpu_torch.utils.logging import prepare_output_dir
     from tepose_tpu_torch.weights import (
@@ -101,7 +114,6 @@ def build_train_loop(cfg, *, synthetic: bool = False,
         print(f"=> loaded pretrained regressor from "
               f"'{cfg.TRAIN.PRETRAINED_REGRESSOR}'")
 
-    loaders = synthetic_loaders(cfg) if synthetic else get_data_loaders(cfg)
     n_2d = int(cfg.TRAIN.BATCH_SIZE * cfg.TRAIN.DATA_2D_RATIO)
     hp = TrainHyper(
         seqlen=cfg.DATASET.SEQLEN, n_2d=n_2d,
@@ -109,6 +121,12 @@ def build_train_loop(cfg, *, synthetic: bool = False,
         update_theta_rate=cfg.TRAIN.UPDATE_THETA_RATE,
         disc_update_steps=cfg.TRAIN.MOT_DISCR.UPDATE_STEPS,
         num_gcn_scales=gcn.num_gcn_scales, num_g3d_scales=gcn.num_g3d_scales)
+    # each process loads its rows of every training batch
+    check_divisible(hp, distributed.process_count())
+    shard_kw = dict(num_shards=distributed.process_count(),
+                    shard_index=distributed.process_index())
+    loaders = (synthetic_loaders(cfg, **shard_kw) if synthetic
+               else get_data_loaders(cfg, **shard_kw))
     gen_opt = make_optimizer(cfg.TRAIN.GEN_OPTIM, gen, cfg.TRAIN.GEN_LR,
                              cfg.TRAIN.GEN_WD, cfg.TRAIN.GEN_MOMENTUM)
     d = cfg.TRAIN.MOT_DISCR
@@ -168,14 +186,83 @@ def _take(flag: str, cast=str):
     return value
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(n: int, argv: list) -> int:
+    """Run this CLI as n ranks on this host (`argv` without --devices),
+    joined through the TEPOSE_* environment; a rank that fails stops the
+    others. Returns the first non-zero exit code, or 0."""
+    port = _free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ)
+        env.update({distributed.ENV_COORDINATOR: f"localhost:{port}",
+                    distributed.ENV_NUM_PROCESSES: str(n),
+                    distributed.ENV_PROCESS_ID: str(rank)})
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tepose_tpu_torch.train"] + argv,
+            env=env))
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed or all(c == 0 for c in codes):
+                return failed[0] if failed else 0
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            p.wait()
+
+
+def join_process_group(device: str) -> str:
+    """Join the process group the TEPOSE_* environment names (NCCL on
+    CUDA, gloo on the CPU); returns this rank's device: cuda:(rank mod the
+    visible count) on CUDA."""
+    if not os.environ.get(distributed.ENV_COORDINATOR):
+        return device
+    if device == "cpu":
+        distributed.maybe_initialize(backend="gloo")
+        return device
+    rank = int(os.environ[distributed.ENV_PROCESS_ID])
+    device = f"cuda:{rank % max(torch.cuda.device_count(), 1)}"
+    torch.cuda.set_device(device)
+    distributed.maybe_initialize(backend="nccl")
+    return device
+
+
+def rank_count(devices: str, device: str) -> int:
+    """The number of ranks `--devices` asks for; more CUDA devices than
+    are visible exit, naming the count."""
+    visible = torch.cuda.device_count()
+    if devices == "auto":
+        return 1 if device == "cpu" else visible
+    try:
+        n = int(devices)
+    except ValueError:
+        raise SystemExit(f"--devices expects an integer or 'auto', "
+                         f"got {devices!r}")
+    if device != "cpu" and n > visible:
+        raise SystemExit(f"--devices {n} requested but only {visible} CUDA "
+                         f"devices are visible")
+    return n
+
+
 def main():
     from tepose_tpu_torch.config import gpu_device, parse_args
 
+    argv = sys.argv[1:]
     profile = _take("--profile")
-    for flag in UNPORTED_FLAGS:
-        if flag in sys.argv:
-            raise SystemExit(f"{flag} is not ported to tepose_tpu_torch; "
-                             "the port trains on one device")
+    devices = _take("--devices")
+    if devices is not None:
+        i = argv.index("--devices")
+        argv = argv[:i] + argv[i + 2:]
     synthetic = "--synthetic" in sys.argv
     if synthetic:
         sys.argv.remove("--synthetic")
@@ -191,6 +278,18 @@ def main():
         del sys.argv[i:i + 2]
     cfg, cfg_file, args = parse_args()
     device = gpu_device(args.gpu)
-    return run_train(cfg, profile=profile, synthetic=synthetic,
-                     smoke_iters=smoke_iters, smoke_verts=smoke_verts,
-                     device=device, cfg_file=cfg_file)
+    if devices is not None and not os.environ.get(
+            distributed.ENV_COORDINATOR):
+        n = rank_count(devices, device)
+        if n > 1:
+            rc = launch_ranks(n, argv)
+            if rc:
+                raise SystemExit(rc)
+            return None
+    device = join_process_group(device)
+    try:
+        return run_train(cfg, profile=profile, synthetic=synthetic,
+                         smoke_iters=smoke_iters, smoke_verts=smoke_verts,
+                         device=device, cfg_file=cfg_file)
+    finally:
+        distributed.shutdown()

@@ -28,6 +28,12 @@ known on the host from the batch; `dis_loss != 0` is read from the device
 once per window on which the discriminator could step. `mode`, `ablate`,
 `share_fake_disc`, `compute_dtype` and the packed segment of the JAX module
 are not ported (measurement knobs and remote-link plumbing).
+
+With a `shard` (`parallel.dp.RowShard`) the segment is one process's part of
+a data-parallel segment that computes the single-device one: the batches
+are this process's rows, random draws take the global shape and keep these
+rows, the step decisions and metrics are global, and one all-reduce of a
+flat buffer per window sums both nets' gradients and the metrics.
 """
 
 from __future__ import annotations
@@ -40,8 +46,10 @@ import numpy as np
 import torch
 
 from tepose_tpu_torch.models.gcn import MotionDiscriminator
+from tepose_tpu_torch.models.layers import uniform
 from tepose_tpu_torch.models.smpl import SmplModel
 from tepose_tpu_torch.models.tepose import TePose
+from tepose_tpu_torch.parallel.distributed import fetch_global, reducing
 from tepose_tpu_torch.train.loss import LossWeights, tepose_loss
 from tepose_tpu_torch.train.optim import take_step
 
@@ -66,14 +74,15 @@ class TrainHyper:
 def assemble_window(batch_2d: Dict[str, torch.Tensor],
                     batch_3d: Dict[str, torch.Tensor],
                     theta_buf: torch.Tensor, j: int, hp: TrainHyper,
-                    generator: Optional[torch.Generator]):
+                    generator):
     """The (B, S, 2133) input of window j.
 
     Returns (inp, new_theta_buf, update (B,), valid (B,), targets). Rows
     with update 0 take their pseudo-thetas as feedback and reset the ring
-    buffer to them. `generator` draws the scheduled sampling
+    buffer to them. `generator` (a `torch.Generator` or, for one process's
+    rows, a `models.layers.RowDraws`) draws the scheduled sampling
     (Bernoulli(update_theta_rate) per row); at rates 0 and 1 it is not
-    drawn from."""
+    drawn from. B is the batches' rows, 2D rows then 3D rows."""
     S = hp.seqlen
     t = j + S - 1
     sw = batch_2d["switch_id"]                                  # (B2,2,VL)
@@ -89,15 +98,15 @@ def assemble_window(batch_2d: Dict[str, torch.Tensor],
     feats = torch.cat([feats2, batch_3d["features"][:, j:j + S]])
     pseu = torch.cat([pseu2, batch_3d["theta_pseu"][:, j:j + S - 1]])
 
-    B = hp.n_2d + hp.n_3d
+    B, n_3d = feats.shape[0], batch_3d["features"].shape[0]
     if hp.update_theta_rate >= 1.0:
         bern = torch.ones(B, device=feats.device)
     elif hp.update_theta_rate <= 0.0:
         bern = torch.zeros(B, device=feats.device)
     else:
-        bern = (torch.rand(B, generator=generator, device=feats.device)
+        bern = (uniform((B,), generator, feats.device)
                 < hp.update_theta_rate).float()
-    update = bern * torch.cat([switch_2d, torch.ones(hp.n_3d,
+    update = bern * torch.cat([switch_2d, torch.ones(n_3d,
                                                      device=feats.device)])
     theta_buf = torch.where(update[:, None, None] > 0, theta_buf, pseu)
 
@@ -155,8 +164,8 @@ def train_segment(gen: TePose, disc: MotionDiscriminator, smpl: SmplModel,
                   disc_opt: torch.optim.Optimizer, hp: TrainHyper,
                   weights: LossWeights, batch_2d: Dict[str, np.ndarray],
                   batch_3d: Dict[str, np.ndarray], amass_theta: np.ndarray,
-                  generator: Optional[torch.Generator]
-                  ) -> Dict[str, float]:
+                  generator: Optional[torch.Generator],
+                  shard=None) -> Dict[str, float]:
     """`num_iters = len(amass_theta)` windows of GAN training over one
     (2D batch, 3D batch) pair, on the device of `smpl`.
 
@@ -165,27 +174,50 @@ def train_segment(gen: TePose, disc: MotionDiscriminator, smpl: SmplModel,
     `generator` (on that device) draws scheduled sampling and the
     regressor's dropout; None turns dropout off. The last window's
     gradients stay in `.grad`. Returns the per-segment mean of each metric
-    (`METRIC_NAMES`), read back once."""
+    (`METRIC_NAMES`), read back once.
+
+    With `shard` (a `parallel.dp.RowShard`; `parallel.dp.
+    sharded_train_segment` passes it) the batches and amass_theta hold this
+    process's rows only and the segment runs as its part of the global
+    one."""
     device = smpl.v_template.device
     S = hp.seqlen
     b2, b3 = upload(batch_2d, device), upload(batch_3d, device)
     amass = torch.as_tensor(np.asarray(amass_theta, np.float32),
                             device=device)
-    # host copies of what decides the optimizer steps
-    vidlen = np.concatenate([np.asarray(batch_2d["vidlen_each"]).reshape(-1),
-                             np.asarray(batch_3d["vidlen_each"]).reshape(-1)])
-    w_smpl_host = np.asarray(batch_3d["w_smpl"])
+    # host copies of what decides the optimizer steps, for the global batch
+    vidlen2 = np.asarray(batch_2d["vidlen_each"], np.float32).reshape(-1)
+    vidlen3 = np.asarray(batch_3d["vidlen_each"], np.float32).reshape(-1)
+    w_smpl_host = np.asarray(batch_3d["w_smpl"], np.float32)
+    draws, real_masks = generator, None
+    if shard is not None:
+        vidlen2, vidlen3, w_smpl_host = (
+            fetch_global(x) for x in (vidlen2, vidlen3, w_smpl_host))
+        if generator is not None:
+            draws = shard.draws(generator, device)
+    vidlen = np.concatenate([vidlen2, vidlen3])
+    n_2d = len(vidlen2)
+    K = len(amass_theta)
+    valid_host = np.stack([j < vidlen - S + 1 for j in range(K)])   # (K, B)
+    gan_rows = np.concatenate(
+        [np.ones((K, n_2d), bool),
+         (w_smpl_host[:, S - 1:S - 1 + K] == 0).T], axis=1) & valid_host
+    if shard is not None:
+        # the real pass masks this process's AMASS rows, which are other
+        # rows of the global batch than its generator rows
+        real_masks = torch.as_tensor(gan_rows[:, shard.amass_rows()],
+                                     device=device)
     gen.train()
     disc.train()
 
     theta_buf = initial_theta_buf(b2, b3, S)
     per_window = []
-    for j in range(len(amass_theta)):
+    for j in range(K):
         inp, theta_buf, _, valid, targets = assemble_window(
-            b2, b3, theta_buf, j, hp, generator)
+            b2, b3, theta_buf, j, hp, draws)
         gen_opt.zero_grad(set_to_none=True)
         disc_opt.zero_grad(set_to_none=True)
-        preds = gen(inp, smpl, train=True, generator=generator,
+        preds = gen(inp, smpl, train=True, generator=draws,
                     compute_verts=False)
         calls = [0]
 
@@ -196,30 +228,33 @@ def train_segment(gen: TePose, disc: MotionDiscriminator, smpl: SmplModel,
                     return disc(x, mask)
             return disc(x, mask)
 
-        gen_loss, dis_loss, ld = tepose_loss(
-            preds, kp_2d_gt=targets["kp_2d"], kp_3d_gt=targets["kp_3d"],
-            theta_gt=targets["theta"], w_3d=targets["w_3d"],
-            w_smpl=targets["w_smpl"], valid=valid, n_2d=hp.n_2d,
-            prev_thetas=theta_buf.detach(), real_motion=amass[j],
-            disc_fn=disc_fn, weights=weights)
-        mean_theta = preds["theta"].mean(dim=1).detach()
-        (gen_loss + dis_loss).backward()
+        with (reducing() if shard is not None
+              else contextlib.nullcontext()):
+            gen_loss, dis_loss, ld = tepose_loss(
+                preds, kp_2d_gt=targets["kp_2d"], kp_3d_gt=targets["kp_3d"],
+                theta_gt=targets["theta"], w_3d=targets["w_3d"],
+                w_smpl=targets["w_smpl"], valid=valid,
+                n_2d=b2["features"].shape[0],
+                prev_thetas=theta_buf.detach(), real_motion=amass[j],
+                disc_fn=disc_fn, weights=weights,
+                real_mask=None if real_masks is None else real_masks[j])
+            mean_theta = preds["theta"].mean(dim=1).detach()
+            (gen_loss + dis_loss).backward()
+        metrics = torch.stack([gen_loss.detach(), dis_loss.detach()]
+                              + [ld[k].detach() for k in METRIC_NAMES[2:]])
+        if shard is not None:
+            # each process holds its rows' terms: sum gradients and metrics
+            metrics = shard.sum_gradients((gen_opt, disc_opt), metrics)
 
-        valid_host = j < vidlen - S + 1
-        if valid_host.any():
+        if valid_host[j].any():
             take_step(gen_opt)
             gen.drop_fast_pack()
-            gan_rows = np.concatenate(
-                [np.ones(hp.n_2d, bool), w_smpl_host[:, j + S - 1] == 0]) \
-                & valid_host
-            if (j % hp.disc_update_steps == 0 and gan_rows.any()
-                    and bool(dis_loss.detach() != 0)):
+            if (j % hp.disc_update_steps == 0 and gan_rows[j].any()
+                    and bool(metrics[1] != 0)):
                 take_step(disc_opt)
 
         shifted = torch.cat([theta_buf[:, 1:], mean_theta[:, None]], dim=1)
         theta_buf = torch.where(valid[:, None, None] > 0, shifted, theta_buf)
-        per_window.append(torch.stack(
-            [gen_loss.detach(), dis_loss.detach()]
-            + [ld[k].detach() for k in METRIC_NAMES[2:]]))
+        per_window.append(metrics)
     means = torch.stack(per_window).mean(dim=0).cpu().tolist()
     return dict(zip(METRIC_NAMES, means))

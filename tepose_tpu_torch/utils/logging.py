@@ -3,8 +3,11 @@
 Copies of `tepose_tpu/utils/logging.py` (`create_logger`,
 `prepare_output_dir`, `MetricWriter`, `AverageMeter`; importing that module
 would import JAX through the `tepose_tpu` package), pinned equal to them by
-tests/test_torch_train_loop.py. The port trains in one process, so the
-copies drop the multi-process primary gate: this process writes every file.
+tests/test_torch_train_loop.py. In a multi-process run
+(`parallel/distributed.py`) only the primary writes files: the log file,
+the metrics and the config snapshot; the others log to the console as
+`[p{rank}]`, and the primary's timestamped logdir is broadcast so every
+process agrees on one path.
 
 Scalars go to the python logger, to a JSONL metrics file (always) and to
 tensorboard when torch's SummaryWriter imports.
@@ -19,6 +22,8 @@ import os.path as osp
 import time
 from typing import Dict, Optional
 
+from tepose_tpu_torch.parallel import distributed
+
 
 def create_logger(logdir: str, phase: str = "train") -> logging.Logger:
     logger = logging.getLogger()
@@ -26,31 +31,41 @@ def create_logger(logdir: str, phase: str = "train") -> logging.Logger:
         for h in list(logger.handlers):
             logger.removeHandler(h)
             h.close()  # else old FileHandler fds leak across re-inits
-    os.makedirs(logdir, exist_ok=True)
-    handlers = [logging.FileHandler(osp.join(logdir, f"{phase}_log.txt")),
-                logging.StreamHandler()]
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s",
-                        handlers=handlers)
+    handlers = [logging.StreamHandler()]
+    fmt = "%(asctime)s %(message)s"
+    if distributed.is_primary():
+        os.makedirs(logdir, exist_ok=True)
+        handlers.insert(0, logging.FileHandler(
+            osp.join(logdir, f"{phase}_log.txt")))
+    else:
+        fmt = f"%(asctime)s [p{distributed.process_index()}] %(message)s"
+    logging.basicConfig(level=logging.INFO, format=fmt, handlers=handlers)
     return logger
 
 
 def prepare_output_dir(cfg, cfg_file: Optional[str] = None) -> str:
-    """Timestamped experiment dir + config snapshot."""
+    """Timestamped experiment dir + config snapshot: the primary's name on
+    every process, written by the primary."""
     logtime = time.strftime("%d-%m-%Y_%H-%M-%S")
-    logdir = osp.join(cfg.OUTPUT_DIR, f"{logtime}_{cfg.EXP_NAME}")
+    logdir = distributed.broadcast_str(
+        osp.join(cfg.OUTPUT_DIR, f"{logtime}_{cfg.EXP_NAME}"))
     cfg.LOGDIR = logdir
-    os.makedirs(logdir, exist_ok=True)
-    with open(osp.join(logdir, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if distributed.is_primary():
+        os.makedirs(logdir, exist_ok=True)
+        with open(osp.join(logdir, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
     return logdir
 
 
 class MetricWriter:
-    """Scalar sink: JSONL always; tensorboard when available."""
+    """Scalar sink: JSONL always; tensorboard when available. Only the
+    primary writes (the metrics are global, the same on every process)."""
 
     def __init__(self, logdir: str):
         self._f = None
         self._tb = None
+        if not distributed.is_primary():
+            return
         os.makedirs(logdir, exist_ok=True)
         self._f = open(osp.join(logdir, "metrics.jsonl"), "a")
         try:

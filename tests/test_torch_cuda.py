@@ -358,3 +358,114 @@ def test_peak_flops_on_the_card(cuda):
     assert F.peak_flops(cuda) == F.peak_flops_for(name)
     if name.startswith("NVIDIA H100"):
         assert F.peak_flops(cuda, torch.bfloat16) > F.peak_flops(cuda)
+
+
+# ------------------------------------------------------------- scale-out
+
+TWO_SHARDS = ["cuda:0", "cuda:0"]
+
+
+def test_sharded_eval_on_two_shards_of_the_card(cuda):
+    """make_sharded_eval_rollout on [cuda:0, cuda:0] against the rollout on
+    cuda:0 (1e-5, the JAX mesh test's bar): every LBS launch of one device
+    becomes one a shard."""
+    from tepose_tpu_torch.eval.evaluator import (
+        eval_rollout, make_sharded_eval_rollout)
+    from tepose_tpu_torch.models.tepose import (
+        TePose, TePoseConfig, Vibe, VibeConfig)
+    from tepose_tpu_torch.parallel.mesh import make_mesh
+
+    rs = np.random.RandomState(0)
+    smpl = synthetic_smpl_model(0, 700, device=cuda)
+    gen = TePose(TePoseConfig(6, 2, 32), device=cuda,
+                 generator=torch.Generator().manual_seed(0)).eval()
+    vibe = Vibe(VibeConfig(6, 2, 32), device=cuda,
+                generator=torch.Generator().manual_seed(1)).eval()
+    B, T = 4, 20
+    x = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rs.randn(B, T, 2048) * 0.1, rs.randn(B, 5, 85) * 0.1,
+        rs.randn(B, T, 85) * 0.1)]
+    jreg = torch.from_numpy(rs.rand(17, 700).astype(np.float32)).to(cuda)
+    before = LS.LAUNCHES
+    want = eval_rollout(gen, vibe, smpl, *x, jreg, T - 5)
+    torch.cuda.synchronize()
+    single = LS.LAUNCHES - before
+    fn = make_sharded_eval_rollout(gen, vibe, smpl, jreg,
+                                   make_mesh(devices=TWO_SHARDS))
+    before = LS.LAUNCHES
+    got = fn(*x, T - 5)
+    torch.cuda.synchronize()
+    assert LS.LAUNCHES - before == 2 * single > 0
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k].numpy(), v.cpu().numpy(),
+                                   atol=1e-5, rtol=0, err_msg=k)
+
+
+def test_engine_on_two_shards_of_the_card(cuda):
+    """StreamingEngine(mesh=[cuda:0, cuda:0]) against the engine on cuda:0
+    at chip_smoke.py's golden bars, crops and features."""
+    import make_torch_serve_golden as sg
+    from tepose_tpu_torch.parallel.mesh import make_mesh
+
+    setup = sg.port_setup(SERVE_SPEC, cuda)
+    want = sg.port_serve(setup)
+    eng = sg.port_engine(setup, mesh=make_mesh(devices=TWO_SHARDS))
+    before = LS.LAUNCHES
+    for results in (eng.run_tracklets_from_crops(setup["crops"]),
+                    eng.run_tracklets(eng.extract_features_multi(
+                        setup["crops"]))):
+        got = sg.golden_outputs(results, SERVE_SPEC)
+        for k, (d, bar) in sg.golden_deviation(
+                got, dict(want, spec=SERVE_SPEC)).items():
+            assert d <= bar, (k, d, bar)
+    assert LS.LAUNCHES > before
+
+
+def test_world1_nccl_segment_matches_plain(cuda):
+    """The data-parallel segment at world size 1 over NCCL against the
+    plain segment, at update rate 0.9 with dropout, both in deterministic
+    mode (chip_smoke.deterministic): losses 1e-6 relative, every leaf
+    within 1e-6 of its magnitude."""
+    import dataclasses
+    import socket
+
+    import make_torch_train_golden as tg
+    from tepose_tpu_torch.parallel import distributed, dp
+    from tepose_tpu_torch.train.trainer import train_segment
+
+    spec = dict(tg.FULL_SPEC, n_layers=1, hidden_size=16, num_verts=48,
+                n_2d=4, n_3d=4, num_gcn_scales=2, num_g3d_scales=2,
+                windows=(3,))
+
+    def run(sharded):
+        s = tg.port_setup(spec, cuda)
+        s["hp"] = dataclasses.replace(s["hp"], update_theta_rate=0.9)
+        args = (s["gen"], s["disc"], s["smpl"], s["gen_opt"], s["disc_opt"],
+                s["hp"], s["weights"], s["batch_2d"], s["batch_3d"],
+                s["amass"], torch.Generator(device=cuda).manual_seed(5))
+        losses = (dp.sharded_train_segment if sharded else train_segment)(
+            *args)
+        return losses, tg.port_state(s)
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import deterministic
+
+    with deterministic():
+        want = run(False)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    distributed.maybe_initialize(f"localhost:{port}", 1, 0, backend="nccl",
+                                 timeout_s=60)
+    try:
+        with deterministic():
+            got = run(True)
+    finally:
+        distributed.shutdown()
+    for k, v in want[0].items():
+        assert abs(got[0][k] - v) <= 1e-6 * max(abs(v), 1e-12), k
+    for g in ("gen", "disc", "disc_state"):
+        for k, v in want[1][g].items():
+            assert np.abs(got[1][g][k] - v).max() <= 1e-6 * max(
+                np.abs(v).max(), 1e-12), (g, k)

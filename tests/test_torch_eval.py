@@ -304,7 +304,9 @@ def test_run_eval_rejects_later_slice_flags(flag, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--devices", "2"], "--devices is not ported"),
+    # --devices is ported: more CUDA devices than are visible exit, naming
+    # the count
+    (["--devices", "64"], "only [0-9]+ are visible"),
     (["--precision", "tensorfloat32"], "float32 only"),
     (["--precision"], "float32 only"),
 ])
@@ -337,7 +339,8 @@ def test_never_imports_jax():
         "          'convert_smpl', 'verify_release', 'utils.flops',\n"
         "          'utils.profiling', 'preprocess.threedpw',\n"
         "          'preprocess.pseudo_theta', 'preprocess.insta',\n"
-        "          'data.preprocess'):\n"
+        "          'data.preprocess', 'parallel.distributed',\n"
+        "          'parallel.mesh', 'parallel.dp', 'parallel.mp_dryrun'):\n"
         "    assert 'tepose_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))

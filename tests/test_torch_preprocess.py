@@ -86,8 +86,8 @@ def small_crops(models, monkeypatch):
     for mod in PORT_BUILDERS:
         monkeypatch.setattr(
             mod, "FeatureExtractor",
-            lambda backbone: port_preprocess.FeatureExtractor(
-                backbone, batch_size=BATCH, crop_size=CROP))
+            lambda backbone, mesh=None: port_preprocess.FeatureExtractor(
+                backbone, batch_size=BATCH, crop_size=CROP, mesh=mesh))
     return models
 
 

@@ -453,7 +453,7 @@ def test_trace_writes_chrome_json_with_aten_ops(tmp_path):
 
 def test_train_cli_accepts_profile(monkeypatch, tmp_path):
     """`python -m tepose_tpu_torch.train --profile DIR` reaches run_train
-    with the directory; --devices is still refused."""
+    with the directory."""
     from tepose_tpu_torch.train import run as TRUN
 
     seen = {}

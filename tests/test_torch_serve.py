@@ -35,6 +35,7 @@ from tepose_tpu_torch.models.backbone import (
 from tepose_tpu_torch.models.smpl import synthetic_smpl_model
 from tepose_tpu_torch.models.tepose import (
     TePose, TePoseConfig, Vibe, VibeConfig)
+from tepose_tpu_torch.parallel.mesh import make_mesh
 from tepose_tpu_torch.streaming import engine as PE
 from tepose_tpu_torch.streaming.engine import StreamingEngine
 from tepose_tpu_torch.streaming.live import LiveSession
@@ -242,8 +243,10 @@ def test_engine_rejections(m):
         _port(m, outputs=())
     with pytest.raises(ValueError, match="preset"):
         _port(m, preset="turbo")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _port(m, mesh=object())
+    # mesh= is ported (tests/test_torch_parallel.py); a mesh naming a CUDA
+    # device that is not there is refused
+    with pytest.raises(ValueError, match="CUDA devices are visible"):
+        _port(m, mesh=make_mesh(devices=["cuda:63"]))
     eng = _port(m)
     with pytest.raises(ValueError, match="mixed crop dtypes"):
         eng.run_tracklets_from_crops(
@@ -424,8 +427,10 @@ def test_live_rejections(m):
         _live(m, outputs=())
     with pytest.raises(ValueError, match="preset"):
         _live(m, preset="turbo")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _live(m, mesh=object())
+    # mesh= is ported (tests/test_torch_parallel.py); the streams must
+    # divide over it
+    with pytest.raises(ValueError, match="must divide"):
+        _live(m, n_streams=3, mesh=make_mesh(devices=["cpu"] * 2))
     bidir = Vibe(VibeConfig(6, 1, 16, bidirectional=True),
                  generator=torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="causal"):

@@ -436,10 +436,13 @@ def test_run_train_cpu_epoch_checkpoint_and_resume(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--devices", "2"], "--devices is not ported"),
+    # --devices is ported: more CUDA devices than are visible exit, naming
+    # the count
+    (["--devices", "64"], "only [0-9]+ CUDA devices are visible"),
     # --profile is ported (utils.profiling.trace): parsed, then --devices
-    # is still refused
-    (["--profile", "x", "--devices", "2"], "--devices is not ported"),
+    # is checked against the visible count
+    (["--profile", "x", "--devices", "64"],
+     "only [0-9]+ CUDA devices are visible"),
     (["--precision", "bf16"], "float32 only"),
 ])
 def test_main_rejects_unported_options(monkeypatch, argv, match):
