@@ -172,6 +172,26 @@ Phases, each of which raises on failure (no phase's error is caught):
      writes one logdir, and `--devices 2` on a one-card host exits
      non-zero naming the visible count. Its outputs go under
      build/chip_smoke_parallel/.
+ 13. bf16 training and evaluate's precision tiers, at full width: (a) the
+     bf16 gate (tools/bf16_gate.py: one window with SGD at lr 1 in float32
+     and in bf16 compute from the same weights and dropout draws; update
+     cosine > 0.98, relative norm < 0.2, gen_loss and dis_loss within 5 %,
+     metrics finite, every master parameter, gradient, optimizer state and
+     BN statistic float32, no LBS launch) at batch 32 (19 + 13) and 128
+     (76 + 52); (b) configs/fast_train.yaml as it stands (TRAIN.PRECISION
+     bf16, batch 128) through `build_train_loop` and `fit`, one epoch of a
+     few windows and validation on one batch (LBS launches > 0, finite
+     metrics), then its checkpoint resumed bit-equal and still bf16; (c)
+     float32 and bf16 at batch 32 and 128 and the shared fake
+     discriminator pass, timed in turns: ms a window, samples x windows/s,
+     kernels a window and idle share (`kernel_timing.profile_device`),
+     peak memory; (d) `run_eval(--synthetic, 3dpw)` at each `--precision`
+     tier (float32, tensorfloat32, bfloat16) with equal LBS launches, and
+     each tier's rollout on phase 3's batch and on one 520-frame video
+     against the port in float64 (skinned by the plain einsum as an
+     oracle, `plain_skinning`): max joint and MPVPE deviation in mm,
+     frames/s, LBS launches; float32 must stay within 0.1 mm. Outputs
+     under build/chip_smoke_bf16/.
 
 With `--timings` it runs phases 0, 1, 5 and 7, and phase 8c on a fresh
 training loop after one untimed segment, and prints no kernels or ok line:
@@ -186,6 +206,7 @@ object.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -1987,6 +2008,296 @@ def phase12_parallel(card: str, p3: dict, p6: dict, p7: dict) -> dict:
     return res
 
 
+# phase 13: bf16 training and evaluate's precision tiers. Batch 32 is the
+# parity configs', 128 configs/fast_train.yaml's (76 2D + 52 3D rows).
+P13_DIR = os.path.join(REPO, "build", "chip_smoke_bf16")
+P13_BATCHES = ((19, 13), (76, 52))
+P13_WINDOWS = 4          # windows a timed segment (make_batch's vidlen 10)
+# (compute dtype, 2D rows, 3D rows, share_fake_disc), timed in turns
+P13_TIMED = ((None, 19, 13, False), ("bfloat16", 19, 13, False),
+             (None, 76, 52, False), ("bfloat16", 76, 52, False),
+             (None, 19, 13, True), ("bfloat16", 76, 52, True))
+P13_TIERS = ("float32", "tensorfloat32", "bfloat16")
+P13_VIDEO = 520          # frames: the reference's longest eval video
+
+
+@contextlib.contextmanager
+def plain_skinning():
+    """SMPL skins through the plain einsum inside: the float64 oracle's
+    mesh (the kernel takes float32 only), not a fallback of any path."""
+    import tepose_tpu_torch.models.smpl as smpl_mod
+    from tepose_tpu_torch.ops.lbs_skinning import lbs_skinning_reference
+
+    saved = smpl_mod.lbs_skinning
+    smpl_mod.lbs_skinning = lbs_skinning_reference
+    try:
+        yield
+    finally:
+        smpl_mod.lbs_skinning = saved
+
+
+def p13_name(cd, n2, n3, share) -> str:
+    return (f"{'bf16' if cd else 'f32'}_b{n2 + n3}"
+            + ("_shared_disc" if share else ""))
+
+
+def phase13_bf16(card: str) -> dict:
+    import copy
+
+    import bf16_gate
+    import make_torch_train_golden as tg
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from kernel_timing import profile_device
+    from tepose_tpu_torch.config import parse_args, update_cfg
+    from tepose_tpu_torch.evaluate import (
+        build_models, make_eval_batch, run_eval, synthetic_eval_data)
+    from tepose_tpu_torch.eval.evaluator import eval_rollout
+    from tepose_tpu_torch.precision import tier_scope
+    from tepose_tpu_torch.train.optim import opt_state_leaves
+    from tepose_tpu_torch.train.run import build_train_loop, close_loaders
+    from tepose_tpu_torch.train.trainer import train_segment
+
+    res = {"card": card, "gate": {}, "train": {}, "tiers": {}, "seconds": {}}
+    t_phase = time.perf_counter()
+
+    def lap(part: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        res["seconds"][part] = now - t_phase
+        t_phase = now
+
+    # (a) the bf16 gate at full width, against the float32 window
+    for n2, n3 in P13_BATCHES:
+        spec = dict(tg.FULL_SPEC, n_2d=n2, n_3d=n3, windows=(1,))
+        lbs.LAUNCHES = 0
+        f32 = bf16_gate.port_window(spec, "cuda", None)
+        bf16 = bf16_gate.port_window(spec, "cuda", "bfloat16")
+        torch.cuda.synchronize()
+        gate = bf16_gate.gate(f32, bf16)
+        res["gate"][n2 + n3] = gate
+        print(f"phase 13a: bf16 gate at batch {n2}+{n3} (2x1024 GRUs, GCN "
+              f"13/6, V={spec['num_verts']}) on cuda: "
+              + ", ".join(f"{k} {v:.6g} (bar {bar:g})"
+                          for k, (v, bar, _) in gate.items())
+              + f"; gen_loss f32 {f32['metrics']['gen_loss']:.6f} bf16 "
+              f"{bf16['metrics']['gen_loss']:.6f}; lbs launches "
+              f"{lbs.LAUNCHES}")
+        failed = {k: v for k, v in gate.items() if not v[2]}
+        if failed or lbs.LAUNCHES:
+            raise RuntimeError(f"bf16 training misses its gate at batch "
+                               f"{n2 + n3}: {failed}, lbs {lbs.LAUNCHES}")
+
+    lap("a")
+
+    # (b) the fast-training config as it stands (TRAIN.PRECISION bf16,
+    # batch 128): one epoch of a few windows, validation on one batch
+    cfg = update_cfg(os.path.join(REPO, "configs", "fast_train.yaml"))
+    cfg.OUTPUT_DIR = os.path.join(P13_DIR, "train")
+    cfg.TRAIN.END_EPOCH = 1
+    kw = dict(synthetic=True, smoke_iters=P13_WINDOWS, device="cuda")
+    loop, num_outer = build_train_loop(cfg, **kw)
+    if loop.hp.compute_dtype != "bfloat16" or \
+            loop.hp.n_2d + loop.hp.n_3d != 128:
+        raise RuntimeError(f"fast_train.yaml built {loop.hp}")
+    loop.max_valid_batches = 1
+    lbs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        loop.fit(cfg.TRAIN.END_EPOCH, num_outer)
+    finally:
+        close_loaders(loop)
+    torch.cuda.synchronize()
+    res["fast_train_s"] = time.perf_counter() - t0
+    res["launches"] = {"train_fast_validation": lbs.LAUNCHES}
+    values = {d["tag"]: d["value"] for d in map(json.loads, open(
+        os.path.join(loop.logdir, "metrics.jsonl")))}
+    print(f"phase 13b: configs/fast_train.yaml --synthetic on cuda (bf16, "
+          f"batch 128, {P13_WINDOWS} windows, validation on one batch): "
+          f"{res['fast_train_s']:.1f} s; lbs launches {lbs.LAUNCHES}; "
+          f"gen_loss {values['train_loss/gen_loss']:.4f}, dis_loss "
+          f"{values['train_loss/dis_loss']:.4f}, pa-mpjpe "
+          f"{values['error/pa-mpjpe']:.2f} mm")
+    if not all(np.isfinite(v) for v in values.values()) or \
+            lbs.LAUNCHES <= 0:
+        raise RuntimeError(f"fast training failed: {values}, lbs "
+                           f"{lbs.LAUNCHES}")
+    cfg2 = cfg.clone()
+    cfg2.TRAIN.RESUME = os.path.join(loop.logdir, "checkpoint.npz")
+    fresh, _ = build_train_loop(cfg2, **kw)
+    close_loaders(fresh)
+    for a, b in ((loop.gen, fresh.gen), (loop.disc, fresh.disc)):
+        sa, sb = a.state_dict(), b.state_dict()
+        if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k])
+                                             for k in sa):
+            raise RuntimeError("the resumed bf16 loop's weights differ")
+    for a, b in ((loop.gen_opt, fresh.gen_opt),
+                 (loop.disc_opt, fresh.disc_opt)):
+        if not all(np.array_equal(x, y) for x, y in
+                   zip(opt_state_leaves(a), opt_state_leaves(b))):
+            raise RuntimeError("the resumed bf16 loop's optimizer state "
+                               "differs")
+    if fresh.hp.compute_dtype != "bfloat16" or fresh.start_epoch != 1:
+        raise RuntimeError("the resumed loop lost bf16 or its epoch")
+    print("phase 13b: checkpoint resumed into a fresh bf16 loop: "
+          "parameters, buffers and optimizer state bit-equal")
+    del loop, fresh
+    lap("b")
+
+    # (c) training timings, in turns: f32 and bf16 at batch 32 and 128,
+    # share_fake_disc on and off
+    runs = {}
+    for cd, n2, n3, share in P13_TIMED:
+        name = p13_name(cd, n2, n3, share)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        setup = tg.port_setup(dict(tg.FULL_SPEC, n_2d=n2, n_3d=n3,
+                                   windows=(P13_WINDOWS,)), "cuda")
+        setup["hp"] = dataclasses.replace(
+            setup["hp"], update_theta_rate=0.9, compute_dtype=cd,
+            share_fake_disc=share)
+        draws = torch.Generator(device="cuda").manual_seed(5)
+
+        def seg(windows=P13_WINDOWS, setup=setup, draws=draws):
+            return train_segment(
+                setup["gen"], setup["disc"], setup["smpl"],
+                setup["gen_opt"], setup["disc_opt"], setup["hp"],
+                setup["weights"], setup["batch_2d"], setup["batch_3d"],
+                setup["amass"][:windows], draws)
+        losses = seg()       # the first call, untimed
+        torch.cuda.synchronize()
+        runs[name] = {"seg": seg, "secs": [], "B": n2 + n3, "losses": losses,
+                      "peak_memory_gb": (torch.cuda.max_memory_allocated()
+                                         - base) / 1e9}
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise RuntimeError(f"{name}: non-finite losses {losses}")
+    order = list(runs)
+    for turn in (order, order[::-1]):
+        for name in turn:
+            t0 = time.perf_counter()
+            runs[name]["seg"]()
+            torch.cuda.synchronize()
+            runs[name]["secs"].append(time.perf_counter() - t0)
+    for name, r in runs.items():
+        med = float(np.median(r["secs"]))
+        # one window profiled: the trace's events are read in Python
+        seg = r.pop("seg")
+        prof = profile_device(lambda: seg(1))
+        r.update(ms_per_window=1e3 * med / P13_WINDOWS,
+                 samples_windows_per_s=r["B"] * P13_WINDOWS / med)
+        r.update({"kernels_per_window": "not measured",
+                  "idle_share": "not measured"} if prof is None else
+                 {"kernels_per_window": prof["kernels"],
+                  "idle_share": prof["idle_share"],
+                  "top_kernels_ms": prof["top_kernels_ms"]})
+        res["train"][name] = r
+        print(f"phase 13c: training {name}: {r['ms_per_window']:.2f} "
+              f"ms/window, {r['samples_windows_per_s']:.1f} samples x "
+              f"windows/s (median of {[round(x, 4) for x in r['secs']]} s "
+              f"per {P13_WINDOWS}-window segment, in turns), kernels/window "
+              f"{r['kernels_per_window']} and idle share {r['idle_share']} "
+              f"(one window profiled), "
+              f"peak memory {r['peak_memory_gb']:.2f} GB [{card}]")
+    del runs
+    ms = {k: v["ms_per_window"] for k, v in res["train"].items()}
+    for b, shared in ((32, "f32_b32"), (128, "bf16_b128")):
+        print(f"phase 13c: bf16 / f32 ms a window at batch {b}: "
+              f"{ms[f'bf16_b{b}'] / ms[f'f32_b{b}']:.3f}; shared / "
+              f"two-call fake pass: "
+              f"{ms[shared + '_shared_disc'] / ms[shared]:.3f} ({shared})")
+
+    lap("c")
+
+    # (d) evaluate's tiers: the entry point per tier (LBS launches equal,
+    # frames/s), then the drift of each tier's rollout against a float64
+    # run of the port on phase 3's synthetic 3DPW batch and on one
+    # 520-frame video
+    pcfg, _, args = parse_args([
+        "--cfg", os.path.join(REPO, "configs", "repr_wopw_3dpw_model.yaml"),
+        "--dataset", "3dpw"])
+    for tier in P13_TIERS:
+        lbs.LAUNCHES = 0
+        out = run_eval(pcfg, args, synthetic=True, device="cuda",
+                       precision=tier)
+        torch.cuda.synchronize()
+        res["launches"][f"eval_{tier}"] = lbs.LAUNCHES
+        res["tiers"][tier] = {"run_eval_frames_per_s":
+                              out["frames"] / out["seconds"],
+                              "lbs_launches": lbs.LAUNCHES,
+                              "metrics": {k: out[k] for k in (
+                                  "mpjpe", "pa_mpjpe", "mpvpe")}}
+    launches = {res["tiers"][t]["lbs_launches"] for t in P13_TIERS}
+    if len(launches) != 1 or launches == {0}:
+        raise RuntimeError(f"the tiers' LBS launches differ or are 0: "
+                           f"{res['launches']}")
+    smpl, gen, vibe, jreg = build_models(pcfg, True, "cuda")
+    S = gen.cfg.seqlen
+    data = synthetic_eval_data()
+    video = synthetic_eval_data(num_videos=1, min_len=P13_VIDEO,
+                                max_len=P13_VIDEO + 1, seed=5)
+    inputs = {"3dpw_batch": (make_eval_batch(data, list(data), S, 128, 4),
+                             [len(d["features"]) for d in data.values()]),
+              "video_520": (make_eval_batch(video, list(video), S,
+                                            P13_VIDEO, 1), [P13_VIDEO])}
+    models = {"float64": (copy.deepcopy(gen).double(),
+                          copy.deepcopy(vibe).double(),
+                          copy.deepcopy(smpl).double(), jreg.double(), None),
+              "bfloat16": (copy.deepcopy(gen).to(torch.bfloat16),
+                           copy.deepcopy(vibe).to(torch.bfloat16), smpl, jreg,
+                           torch.bfloat16)}
+    for case, (batch, lengths) in inputs.items():
+        outs = {}
+        for tier in ("float64",) + P13_TIERS:
+            g, v, sm, jr, cd = models.get(tier, (gen, vibe, smpl, jreg, None))
+            dt = torch.float64 if tier == "float64" else torch.float32
+            x = [torch.from_numpy(batch[k]).to("cuda", dt)
+                 for k in ("feats", "theta_pseu", "theta_gt")]
+            W = x[0].shape[1] - S + 1
+            with (plain_skinning() if tier == "float64"
+                  else contextlib.nullcontext()), \
+                    tier_scope("float32" if tier == "float64" else tier):
+                lbs.LAUNCHES = 0
+                t0 = time.perf_counter()
+                outs[tier] = eval_rollout(g, v, sm, *x, jr, W, cd)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            if tier == "float64":
+                if lbs.LAUNCHES:
+                    raise RuntimeError("the float64 oracle launched the "
+                                       "float32 kernel")
+                continue
+            ref = outs["float64"]
+            dev = {k: 1e3 * max(float((outs[tier][k][i, :n].double()
+                                       - ref[k][i, :n]).abs().max())
+                                for i, n in enumerate(lengths))
+                   for k in ("pred_j3d", "mpvpe")}
+            res["tiers"][tier][case] = {
+                "max_joint_dev_mm": dev["pred_j3d"],
+                "max_mpvpe_dev_mm": dev["mpvpe"],
+                "frames_per_s": sum(lengths) / secs,
+                "lbs_launches": lbs.LAUNCHES}
+            print(f"phase 13d: eval tier {tier} on {case} ({len(lengths)} "
+                  f"videos, {sum(lengths)} frames, full width) against the "
+                  f"port in float64: max joint deviation "
+                  f"{dev['pred_j3d']:.6g} mm, max MPVPE deviation "
+                  f"{dev['mpvpe']:.6g} mm; {sum(lengths) / secs:.1f} "
+                  f"frames/s; lbs launches {lbs.LAUNCHES} [{card}]")
+            if not all(np.isfinite(v) for v in dev.values()) or \
+                    lbs.LAUNCHES <= 0:
+                raise RuntimeError(f"eval tier {tier} failed on {case}")
+    if res["tiers"]["float32"]["3dpw_batch"]["max_joint_dev_mm"] > 0.1:
+        raise RuntimeError("the float32 tier misses the 0.1 mm bar against "
+                           "float64")
+    for tier in P13_TIERS:
+        print(f"phase 13d: run_eval --precision {tier}: "
+              f"{res['tiers'][tier]['run_eval_frames_per_s']:.1f} frames/s, "
+              f"lbs launches {res['tiers'][tier]['lbs_launches']}, metrics "
+              f"{json.dumps(res['tiers'][tier]['metrics'])} [{card}]")
+    lap("d")
+    print(f"phase 13: seconds by part {json.dumps(res['seconds'])}")
+    print(json.dumps({"bf16": res}, default=str))
+    return res
+
+
 def serve_train_timings(card: str) -> None:
     """`python3 chip_smoke.py --timings`: phases 1, 5 and 7, and phase 8c
     on a freshly built training loop after one untimed segment; nothing
@@ -2021,24 +2332,34 @@ def main() -> None:
     sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
     if sys.argv[1:2] == ["--timings"]:
         return serve_train_timings(card)
-    phase1_build()
-    kern = phase2_kernel(card)
-    sl = phase3_slice()
-    phase4_golden()
-    p5 = phase5_engine()
-    p6 = phase6_live(p5)
-    p7 = phase7_timings(p5, card)
-    p8 = phase8_train(card)
-    p9 = phase9_demo(card)
-    p10 = phase10_release(card, p5, p8)
-    p11 = phase11_preprocess(card)
-    p12 = phase12_parallel(card, sl, p6, p7)
+    spent = {}
+
+    def timed(n: int, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        spent[n] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed(1, phase1_build)
+    kern = timed(2, phase2_kernel, card)
+    sl = timed(3, phase3_slice)
+    timed(4, phase4_golden)
+    p5 = timed(5, phase5_engine)
+    p6 = timed(6, phase6_live, p5)
+    p7 = timed(7, phase7_timings, p5, card)
+    p8 = timed(8, phase8_train, card)
+    p9 = timed(9, phase9_demo, card)
+    p10 = timed(10, phase10_release, card, p5, p8)
+    p11 = timed(11, phase11_preprocess, card)
+    p12 = timed(12, phase12_parallel, card, sl, p6, p7)
+    p13 = timed(13, phase13_bf16, card)
+    print(f"seconds by phase: {json.dumps(spent)}")
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
     by_path = {"eval": sl["launches"], "engine": p5["launches"],
                "live": p6["launches"], "train_validation": p8["launches"],
                **p9["launches"], "verify_release": p10["launches"],
-               **p11["launches"], **p12["launches"]}
+               **p11["launches"], **p12["launches"], **p13["launches"]}
     for B, r in {**p9["lbs"], **p11["lbs"]}.items():
         kern["device_ms"][B], kern["plain_ms"][B] = r["ms"], r["plain_ms"]
         kern["bound"][B] = (r["bound_ms"], r["bound_by"])

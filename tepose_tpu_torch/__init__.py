@@ -19,7 +19,12 @@ rasterizer) and evaluate's `--filter`, `--render` and `--plot`, the
 release tools, offline DB building, and the scale-out slice (`parallel/`):
 `evaluate --devices`, `StreamingEngine(mesh=)`, `LiveSession(mesh=)` and
 `FeatureExtractor(mesh=)` over a list of devices in one process, and
-data-parallel training over `torch.distributed` behind `train --devices`.
+data-parallel training over `torch.distributed` behind `train --devices`,
+bf16 training compute (`train --precision bf16`, `configs/fast_train.yaml`),
+the shared fake-discriminator pass, the segment's measurement modes and
+evaluate's `--precision` tiers (`precision.py`). With them the port does
+everything the JAX package does apart from the remote-TPU plumbing
+(flat packing, the compile cache) and the JAX-only FLOP counter.
 Every SMPL forward that builds the mesh skins through the LBS kernel, CUDA
 C++ written for sm_90a (`csrc/lbs_skinning.cu`, built by `kernels.py`);
 the train step and SMPLify's objective read the vertex-free joints instead.

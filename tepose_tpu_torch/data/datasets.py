@@ -1,8 +1,10 @@
 """Dataset classes producing fixed-shape numpy items for the trainer.
 
-A copy of the training datasets of `tepose_tpu/data/datasets.py`
-(`Dataset3D`, `Dataset2D`, `Insta`, `AMASS` and the named wrappers), pinned
-equal to them by tests/test_torch_train_loop.py. Items match the batch spec
+A copy of the datasets of `tepose_tpu/data/datasets.py` (`Dataset3D`,
+`Dataset2D`, `Insta`, `AMASS`, the named wrappers, `MultipleDatasets`,
+`ThreeDPW_TEST`, `Human36M_VAL`, `CropDataset` on the port's g++-built
+`native.crop_normalize`, and `FeatureDataset`), pinned equal to them by
+tests/test_torch_train_loop.py and tests/test_torch_host.py. Items match the batch spec
 `train.trainer.assemble_window` reads:
 
   3D item: features (VIDLEN, 2048), theta/theta_pseu (VIDLEN, 85),
@@ -330,3 +332,86 @@ def Human36M(load_opt, split, seqlen, vidlen, **kw):
 
 def PoseTrack(load_opt, seqlen, vidlen, **kw):
     return Dataset2D(load_opt, seqlen, vidlen, "posetrack", **kw)
+
+
+class MultipleDatasets:
+    """Uniform-sampling concat: each __getitem__ draws from a random member
+    dataset (`tepose_tpu/data/datasets.py::MultipleDatasets`; ref:
+    loaders.py:24-58, which the reference bypasses for plain
+    concatenation)."""
+
+    def __init__(self, datasets, make_same_len: bool = True, seed: int = 0):
+        self.datasets = list(datasets)
+        self.make_same_len = make_same_len
+        self.max_len = max(len(d) for d in self.datasets)
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self) -> int:
+        if self.make_same_len:
+            return self.max_len * len(self.datasets)
+        return sum(len(d) for d in self.datasets)
+
+    def __getitem__(self, index: int):
+        if self.make_same_len:
+            ds = self.datasets[index // self.max_len]
+            return ds[int(self._rng.randint(len(ds)))]
+        for ds in self.datasets:
+            if index < len(ds):
+                return ds[index]
+            index -= len(ds)
+        raise IndexError(index)
+
+
+def ThreeDPW_TEST(load_opt, seqlen, vidlen=520, **kw):
+    """Full-video 3DPW test items (ref: threedpw_test.py:33)."""
+    return Dataset3D(load_opt, "val", seqlen, vidlen, "3dpw", **kw)
+
+
+def Human36M_VAL(load_opt, seqlen, vidlen=520, **kw):
+    """Full-video H36M validation items (ref: h36m_val.py:33)."""
+    return Dataset3D(load_opt, "val", seqlen, vidlen, "h36m", **kw)
+
+
+class CropDataset:
+    """Per-frame bbox crops for the demo feature extractor
+    (`tepose_tpu/data/datasets.py::CropDataset`; ref: dataset_demo.py:29-75).
+    frames: a list of RGB arrays, or a callable frame_idx -> array; bboxes
+    (T, 4) cxcywh. Items are ImageNet-normalised (3, S, S) float32 crops
+    from the native library (`native.crop_normalize`)."""
+
+    def __init__(self, frames, bboxes: np.ndarray, frame_ids=None,
+                 scale: float = 1.2, crop_size: int = 224):
+        self.frames = frames
+        self.bboxes = np.asarray(bboxes, np.float32)
+        self.frame_ids = (np.arange(len(self.bboxes))
+                          if frame_ids is None else np.asarray(frame_ids))
+        self.scale = scale
+        self.crop_size = crop_size
+
+    def __len__(self) -> int:
+        return len(self.bboxes)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        from tepose_tpu_torch.native import crop_normalize
+
+        frame = (self.frames(int(self.frame_ids[idx]))
+                 if callable(self.frames)
+                 else self.frames[int(self.frame_ids[idx])])
+        return crop_normalize(frame, self.bboxes[idx:idx + 1],
+                              self.crop_size, self.scale)[0]
+
+
+class FeatureDataset:
+    """Sliding seqlen-windows over a precomputed feature track
+    (`tepose_tpu/data/datasets.py::FeatureDataset`; ref:
+    dataset_demo.py:78-108)."""
+
+    def __init__(self, features: np.ndarray, seqlen: int):
+        self.features = np.asarray(features, np.float32)
+        self.seqlen = seqlen
+
+    def __len__(self) -> int:
+        return max(0, len(self.features) - self.seqlen + 1)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        return self.features[idx:idx + self.seqlen]

@@ -35,22 +35,23 @@ from tepose_tpu_torch.parallel.mesh import (
     Mesh, gather_rows, replicate, shard_batch)
 
 
-def _vertex_error(pred_verts: torch.Tensor,
-                  gt_verts: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(((pred_verts - gt_verts) ** 2).sum(-1)).mean(-1)
-
-
 @torch.inference_mode()
 def eval_rollout(gen: TePose, vibe: Vibe, smpl: SmplModel,
                  feats: torch.Tensor, theta_pseu: torch.Tensor,
                  theta_gt: torch.Tensor, j_regressor: Optional[torch.Tensor],
-                 num_windows: int) -> Dict[str, torch.Tensor]:
+                 num_windows: int,
+                 compute_dtype: Optional[torch.dtype] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Evaluate videos padded to T frames.
 
     feats (B, T, 2048), theta_pseu (B, S-1, 85), theta_gt (B, T, 85) and
     j_regressor (17, V) (None for the 49-joint output) on one device.
     Returns pred_j3d (B, T', K, 3), pred_theta (B, T', 85) and mpvpe
     (B, T') for the first T' = num_windows + S - 1 frames.
+
+    With `compute_dtype` (the bfloat16 tier: `gen` and `vibe` hold bf16
+    parameters) the window inputs enter the networks in that dtype; SMPL,
+    the skinning, the theta feedback and the outputs keep feats' dtype.
     """
     S = gen.cfg.seqlen
     B, T = feats.shape[:2]
@@ -60,9 +61,12 @@ def eval_rollout(gen: TePose, vibe: Vibe, smpl: SmplModel,
             f"num_windows={num_windows} not in [1, T-S+1={T - S + 1}] "
             f"(T={T}, S={S})")
 
-    vibe_out = vibe(feats[:, :S], smpl, j_regressor=j_regressor)
+    def cast(x):
+        return x if compute_dtype is None else x.to(compute_dtype)
+
+    vibe_out = vibe(cast(feats[:, :S]), smpl, j_regressor=j_regressor)
     boot_j3d = vibe_out["kp_3d"][:, :S - 1]
-    boot_theta = vibe_out["theta"][:, :S - 1]
+    boot_theta = vibe_out["theta"][:, :S - 1].to(feats.dtype)
     boot_verts = vibe_out["verts"][:, :S - 1]
 
     zero_fb = torch.zeros_like(theta_pseu[:, :1])
@@ -71,20 +75,20 @@ def eval_rollout(gen: TePose, vibe: Vibe, smpl: SmplModel,
     for k in range(num_windows):
         fb = torch.cat([theta_buf, zero_fb], dim=1)
         inp = torch.cat([feats[:, k:k + S], fb], dim=-1)
-        out = gen(inp, smpl, j_regressor=j_regressor)
-        theta = out["theta"]
+        out = gen(cast(inp), smpl, j_regressor=j_regressor)
+        theta = out["theta"].to(feats.dtype)
         theta_buf = torch.cat([theta_buf[:, 1:], theta[:, None]], dim=1)
         th = theta_gt[:, k + S - 1]
         gt = smpl_forward(smpl, th[:, 75:], th[:, 3:75], pose2rot=True)
         j3d.append(out["kp_3d"])
         thetas.append(theta)
-        mpvpe.append(_vertex_error(out["verts"], gt["verts"]))
+        mpvpe.append(M.vertex_error(out["verts"], gt["verts"]))
 
     # bootstrap MPVPE: one batched GT rebuild over the S-1 frames
     th_boot = theta_gt[:, :S - 1].reshape(B * (S - 1), 85)
     gt_boot = smpl_forward(smpl, th_boot[:, 75:], th_boot[:, 3:75],
                            pose2rot=True)["verts"]
-    boot_mpvpe = _vertex_error(boot_verts,
+    boot_mpvpe = M.vertex_error(boot_verts,
                                gt_boot.reshape((B, S - 1) + gt_boot.shape[1:]))
 
     return {
@@ -97,7 +101,8 @@ def eval_rollout(gen: TePose, vibe: Vibe, smpl: SmplModel,
 
 def make_sharded_eval_rollout(gen: TePose, vibe: Vibe, smpl: SmplModel,
                               j_regressor: Optional[torch.Tensor],
-                              mesh: Mesh):
+                              mesh: Mesh,
+                              compute_dtype: Optional[torch.dtype] = None):
     """Mesh-parallel eval rollout: videos split over the mesh's devices.
 
     Each video's theta-feedback chain is independent (no BN, no cross-video
@@ -106,12 +111,14 @@ def make_sharded_eval_rollout(gen: TePose, vibe: Vibe, smpl: SmplModel,
     replica skins on its own device) with no collectives. Returns
     fn(feats, theta_pseu, theta_gt, num_windows) -> the `eval_rollout`
     outputs on the host, rows in input order; B must divide over the mesh.
-    The shards are queued device by device before any is read back."""
+    The shards are queued device by device before any is read back.
+    `compute_dtype` is `eval_rollout`'s, on every replica."""
     replicas = replicate((gen, vibe, smpl, j_regressor), mesh)
 
     def fn(feats, theta_pseu, theta_gt, num_windows: int):
         shards = shard_batch((feats, theta_pseu, theta_gt), mesh)
-        outs = [eval_rollout(g, v, s, f, p, t, jr, num_windows)
+        outs = [eval_rollout(g, v, s, f, p, t, jr, num_windows,
+                             compute_dtype)
                 for (g, v, s, jr), (f, p, t) in zip(replicas, shards)]
         return {k: gather_rows([o[k] for o in outs]) for k in outs[0]}
 

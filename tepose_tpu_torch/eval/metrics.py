@@ -1,7 +1,7 @@
 """Pose error metrics with the reference's conventions, on the host.
 
-Port of `tepose_tpu/eval/metrics.py` (`mpjpe`, `pa_mpjpe`,
-`host_joint_errors`, `accel_error_eval`, and copies of the numpy
+Port of `tepose_tpu/eval/metrics.py` (`align_pelvis`, `mpjpe`, `pa_mpjpe`,
+`vertex_error`, `host_joint_errors`, `accel_error_eval`, and copies of the numpy
 `accel_magnitude_masked` / `accel_error_masked` that trainer validation
 uses, and of `plot_accel`, the `--plot` figure, with matplotlib imported
 inside it). Distances are in the input unit
@@ -18,6 +18,13 @@ import torch
 from tepose_tpu_torch.ops.procrustes import batch_similarity_transform
 
 
+def align_pelvis(joints: torch.Tensor, left: int = 2,
+                 right: int = 3) -> torch.Tensor:
+    """Subtract the mid-hip from every joint. joints (..., K, 3)."""
+    pelvis = (joints[..., left, :] + joints[..., right, :]) / 2.0
+    return joints - pelvis[..., None, :]
+
+
 def mpjpe(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Per-frame mean-per-joint position error. (N, K, 3) -> (N,)."""
     return torch.sqrt(((pred - target) ** 2).sum(-1)).mean(-1)
@@ -27,6 +34,12 @@ def pa_mpjpe(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Procrustes-aligned MPJPE. (N, K, 3) -> (N,)."""
     aligned = batch_similarity_transform(pred, target)
     return torch.sqrt(((aligned - target) ** 2).sum(-1)).mean(-1)
+
+
+def vertex_error(pred_verts: torch.Tensor,
+                 target_verts: torch.Tensor) -> torch.Tensor:
+    """MPVPE over the mesh surface. (N, V, 3) -> (N,)."""
+    return torch.sqrt(((pred_verts - target_verts) ** 2).sum(-1)).mean(-1)
 
 
 def host_joint_errors(pred: np.ndarray, target: np.ndarray):

@@ -9,8 +9,14 @@ Counterpart of the repository's `evaluate.py` (JAX):
 
 Videos are bucketed by length, padded and evaluated in batches through
 `eval.evaluator.eval_rollout`, with the same bucket and batch defaults as
-the JAX CLI (`--eval_bucket`, `--eval_batch`). Matmuls and cuDNN run in
-strict float32 (TF32 off); `--precision` accepts only `float32`.
+the JAX CLI (`--eval_bucket`, `--eval_batch`). `--precision` takes the
+JAX CLI's spellings and maps each tier to the card's own arithmetic
+(`precision.py`): `float32` (`highest`; the default, strict float32 with
+TF32 off), `tensorfloat32` (`tf32`, `high`: Hopper TF32 in cuBLAS and
+cuDNN) and `bfloat16` (`bf16`, `default`, `fast`: the TePose and VIBE
+forward with bf16 parameters and inputs, SMPL, skinning and metrics in
+float32). Unlike the JAX CLI, whose default is its TPU tensorfloat32 tier,
+the port defaults to float32, its parity contract.
 `--filter` slerp-smooths each video's rotations and rebuilds its mesh and
 H36M J14 joints on the device (`filter_video_predictions`), `--plot`
 saves the acceleration-error figure and `--render` / `--render_plain`
@@ -23,6 +29,7 @@ devices are N copies of the CPU.
 
 from __future__ import annotations
 
+import copy
 import os.path as osp
 import sys
 import time
@@ -31,11 +38,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-def strict_f32() -> None:
-    """Full float32 for matmuls and cuDNN (its GRUs included): TF32 keeps
-    about three decimal digits, and the theta feedback compounds errors."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+from tepose_tpu_torch.precision import eval_tier, strict_f32, tier_scope
 
 
 def synthetic_j_regressor(num_verts: int) -> np.ndarray:
@@ -198,11 +201,20 @@ def eval_mesh(devices, device: torch.device | str):
 
 
 def run_eval(cfg, args, synthetic: bool = False, *,
-             device: torch.device | str, devices=None) -> Dict[str, float]:
+             device: torch.device | str, devices=None,
+             precision: str = "float32") -> Dict[str, float]:
     """Evaluate on `device`; returns the metric summary (mm) plus `frames`
     (poses evaluated) and `seconds` (wall time of the eval loop).
     `devices` (an int, "auto" or a `parallel.mesh.Mesh`, see `eval_mesh`)
-    splits every batch over a mesh."""
+    splits every batch over a mesh. `precision` is a `--precision`
+    spelling; the tier's flags hold inside this call only."""
+    tier = eval_tier(precision)
+    strict_f32()
+    with tier_scope(tier):
+        return _run_eval(cfg, args, synthetic, device, devices, tier)
+
+
+def _run_eval(cfg, args, synthetic, device, devices, tier):
     from tepose_tpu_torch.data.db import (
         eval_db_paths, key_eval_db_by_video, load_db, load_pseudotheta)
     from tepose_tpu_torch.data.kp_utils import convert_kps
@@ -210,20 +222,24 @@ def run_eval(cfg, args, synthetic: bool = False, *,
         EvalAccumulator, eval_rollout, make_sharded_eval_rollout,
         spin49_to_eval_format)
 
-    strict_f32()
     dataset = args.dataset
     if args.filter and dataset == "mpii3d":
         sys.exit("--filter is not supported for mpii3d: the slerp-smoothed "
                  "rebuild regresses J14 joints through the H36M J_regressor "
                  "(ref: evaluate.py:288-290), which mpii3d eval does not use")
     smpl, gen, vibe, j_regressor = build_models(cfg, synthetic, device)
+    cd = torch.bfloat16 if tier == "bfloat16" else None
+    if cd is not None:
+        # bf16 copies: the cast training takes every step, taken once
+        gen, vibe = copy.deepcopy(gen).to(cd), copy.deepcopy(vibe).to(cd)
     S = gen.cfg.seqlen
     jreg = j_regressor if dataset != "mpii3d" else None
     mesh = eval_mesh(devices, device)
     if mesh is not None:
         print(f"=> data-parallel eval over {mesh.size} devices: "
               f"{[str(d) for d in mesh.devices]}")
-        sharded = make_sharded_eval_rollout(gen, vibe, smpl, jreg, mesh)
+        sharded = make_sharded_eval_rollout(gen, vibe, smpl, jreg, mesh,
+                                            cd)
 
     if synthetic:
         data = synthetic_eval_data()
@@ -266,7 +282,7 @@ def run_eval(cfg, args, synthetic: bool = False, *,
                          make_eval_batch(data, chunk, S, T_pad, B).items()}
                 out = eval_rollout(gen, vibe, smpl, batch["feats"],
                                    batch["theta_pseu"], batch["theta_gt"],
-                                   jreg, W)
+                                   jreg, W, cd)
             pred_j3d = out["pred_j3d"].cpu().numpy()
             pred_theta = out["pred_theta"].cpu().numpy()
             mpvpe = out["mpvpe"].cpu().numpy()
@@ -310,7 +326,7 @@ def run_eval(cfg, args, synthetic: bool = False, *,
     res = acc.summarize()
     dt = time.time() - t_start
     print(f"\nEvaluated total {tot_frames} poses in {dt:.1f}s "
-          f"({tot_frames / max(dt, 1e-9):.1f} FPS) on {device}")
+          f"({tot_frames / max(dt, 1e-9):.1f} FPS) on {device}, {tier}")
     print({k: round(v, 4) for k, v in res.items()})
     res["frames"] = tot_frames
     res["seconds"] = dt
@@ -400,14 +416,14 @@ def main():
             except ValueError:
                 raise SystemExit(f"--devices expects an integer or 'auto', "
                                  f"got {devices!r}")
+    precision = "float32"
     if "--precision" in sys.argv:
         i = sys.argv.index("--precision")
-        precision = sys.argv[i + 1] if i + 1 < len(sys.argv) else None
-        if precision != "float32":
-            raise SystemExit(
-                f"--precision {precision!r}: the port evaluates in float32 "
-                "only; a faster tier needs its own drift measurement")
+        if i + 1 >= len(sys.argv):
+            raise SystemExit("--precision needs a value")
+        precision = sys.argv[i + 1]
         del sys.argv[i:i + 2]
+        eval_tier(precision)
     cfg, _, args = parse_args()
     device = gpu_device(args.gpu)
     try:
@@ -415,7 +431,7 @@ def main():
     except ValueError as e:
         raise SystemExit(f"--devices {devices}: {e}")
     return run_eval(cfg, args, synthetic=synthetic, device=device,
-                    devices=mesh)
+                    devices=mesh, precision=precision)
 
 
 if __name__ == "__main__":

@@ -55,7 +55,10 @@ def _uniform(shape, bound: float, generator: torch.Generator,
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over every axis but 1, torch semantics, with `row_mask`
     (N,) restricting the statistics to the selected rows (`bn_apply`).
-    Masked-out rows are still normalised. Statistics are float32."""
+    Masked-out rows are still normalised. Statistics and the normalisation
+    are float32 (or wider) whatever the input's dtype; the output takes the
+    weight's dtype, bf16 under bf16 training compute, as `bn_apply`'s
+    does."""
 
     def __init__(self, num_features: int, device):
         super().__init__()
@@ -71,6 +74,8 @@ class MaskedBatchNorm(nn.Module):
         axes = tuple(i for i in range(x.dim()) if i != 1)
         shape = [1] * x.dim()
         shape[1] = x.shape[1]
+        out_dtype = self.weight.dtype
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             mean, var = self.running_mean, self.running_var
         elif row_mask is not None:
@@ -97,9 +102,10 @@ class MaskedBatchNorm(nn.Module):
             var = x.var(dim=axes, unbiased=False)
             n = x.numel() / x.shape[1]
             self._update(mean, var * n / max(n - 1, 1), None)
-        inv = torch.rsqrt(var + BN_EPS) * self.weight
-        return (x - mean.reshape(shape)) * inv.reshape(shape) \
-            + self.bias.reshape(shape)
+        inv = torch.rsqrt(var + BN_EPS) * self.weight.to(x.dtype)
+        out = (x - mean.reshape(shape)) * inv.reshape(shape) \
+            + self.bias.to(x.dtype).reshape(shape)
+        return out.to(out_dtype)
 
     @torch.no_grad()
     def _update(self, mean, unbiased, any_rows) -> None:
@@ -196,7 +202,9 @@ class MSGCN(nn.Module):
                              torch.as_tensor(A_powers, device=device))
 
     def forward(self, x, row_mask=None):
-        A = self.A_powers + self.A_res
+        # the constant adjacency takes the trained residual's dtype, so
+        # bf16 compute stays bf16 (`ms_gcn_apply`)
+        A = self.A_powers.to(self.A_res.dtype) + self.A_res
         return self.mlp(_aggregate(A, x, self.num_scales), row_mask)
 
 
@@ -230,7 +238,7 @@ class STMSGCN(nn.Module):
                              torch.as_tensor(A_scales, device=device))
 
     def forward(self, x, row_mask=None):
-        A = self.A_scales + self.A_res
+        A = self.A_scales.to(self.A_res.dtype) + self.A_res
         agg = _aggregate(A, x, self.num_scales)
         return torch.relu(self.mlp(agg, row_mask, activation="linear"))
 

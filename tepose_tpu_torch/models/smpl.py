@@ -269,11 +269,14 @@ def smpl_forward(model: SmplModel, betas: torch.Tensor, pose: torch.Tensor,
 
     betas (B, 10); pose (B, 24, 3, 3) rotation matrices, or (B, 72)
     axis-angle with `pose2rot`. Returns a dict with verts (B, V, 3),
-    joints49 (B, 49, 3) and joints24 (B, 24, 3).
+    joints49 (B, 49, 3) and joints24 (B, 24, 3), in the model's dtype:
+    bf16 inputs are cast to it at this boundary.
     """
     B = betas.shape[0]
     rot_mats = (batch_rodrigues(pose.reshape(B, NUM_SMPL_JOINTS, 3))
                 if pose2rot else pose)
+    dtype = model.v_template.dtype
+    betas, rot_mats = betas.to(dtype), rot_mats.to(dtype)
 
     # 1. Shape blendshapes.
     v_shaped = model.v_template + torch.einsum(
@@ -350,14 +353,18 @@ def smpl_joints_reduced(model: SmplModel, betas: torch.Tensor,
     reordered through `joint_reduction_tensors`, equal to
     `smpl_forward(...)["joints49"]` within float reassociation. The train
     step takes it, so neither its forward nor its backward skins.
-    betas (B, 10); rot_mats (B, 24, 3, 3). Returns (B, 49, 3)."""
+    betas (B, 10); rot_mats (B, 24, 3, 3). Returns (B, 49, 3) in the
+    model's dtype. Under bf16 compute the inputs are bf16: the pose feature
+    is taken in bf16 and everything after it runs in the model's float32,
+    where JAX promotes against its float32 SMPL tensors."""
     B = betas.shape[0]
     A0, AS, AP, W1, J0, JS = _reduced(model)
+    ident = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
+    pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1).to(A0.dtype)
+    betas, rot_mats = betas.to(A0.dtype), rot_mats.to(A0.dtype)
     joints_rest = J0 + torch.einsum("bl,jkl->bjk", betas, JS)
     posed_joints, rel_tf = _rigid_transform(rot_mats, joints_rest,
                                             model.parents, model._parent_idx)
-    ident = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
-    pose_feature = (rot_mats[:, 1:] - ident).reshape(B, -1)       # (B, 207)
     # blended rest points per (selected joint, bone): linear in betas and
     # in the pose feature
     p_sel = (A0 + torch.einsum("bl,jkcl->bjkc", betas, AS)

@@ -1,6 +1,7 @@
 """Procrustes / similarity-transform alignment (the PA in PA-MPJPE).
 
-Port of `tepose_tpu/ops/procrustes.py::batch_similarity_transform`: SVD-based
+Port of `tepose_tpu/ops/procrustes.py` (`similarity_transform`,
+`batch_similarity_transform`): SVD-based
 orthogonal Procrustes with the reflection fix and scale/translation recovery.
 The rotation V Z U^T does not depend on the signs the SVD picks for its
 singular-vector pairs, so `torch.linalg.svd` and `jnp.linalg.svd` agree.
@@ -9,6 +10,12 @@ singular-vector pairs, so `torch.linalg.svd` and `jnp.linalg.svd` agree.
 from __future__ import annotations
 
 import torch
+
+
+def similarity_transform(S1: torch.Tensor, S2: torch.Tensor) -> torch.Tensor:
+    """Align the point set S1 (N, 3) to S2 (N, 3) by a similarity
+    transform (s, R, t); returns s * R @ S1 + t as (N, 3)."""
+    return batch_similarity_transform(S1[None], S2[None])[0]
 
 
 def batch_similarity_transform(S1: torch.Tensor,

@@ -11,8 +11,12 @@ Counterpart of the repository's `train.py` (JAX):
 motion discriminator from seed 1, the regressor warm-started from
 `TRAIN.PRETRAINED_REGRESSOR` when that file exists, the loaders (synthetic
 DBs with `--synthetic`), both optimizers, and `train.fit.TrainLoop.fit`.
-Matmuls and cuDNN run in strict float32; `--precision` accepts `float32`
-only. `--profile DIR` records `loop.fit` with `torch.profiler`
+Matmuls and cuDNN run in strict float32. `--precision bf16` (or
+`TRAIN.PRECISION: bf16`, as `configs/fast_train.yaml` sets it; the flag
+wins) trains with bf16 compute (`TrainHyper.compute_dtype`: bf16 parameters
+and activations inside the step, float32 master weights, optimizer state,
+BN statistics and metrics); `f32`, `float32` and `default` train in
+float32, and other values exit as the JAX `train.py`'s do. `--profile DIR` records `loop.fit` with `torch.profiler`
 (`utils.profiling.trace`) into DIR. With `cfg.DEBUG` the loop writes prediction-overlay videos, drawing the
 mesh with the SMPL assets' faces, or for the synthetic model a triangle
 soup over its vertices, as `train.py` does.
@@ -42,17 +46,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tepose_tpu_torch.evaluate import strict_f32, synthetic_j_regressor
+from tepose_tpu_torch.evaluate import synthetic_j_regressor
 from tepose_tpu_torch.parallel import distributed
+from tepose_tpu_torch.precision import parse_train_precision, strict_f32
 
 
 def build_train_loop(cfg, *, synthetic: bool = False,
                      smoke_iters: Optional[int] = None,
                      smoke_verts: Optional[int] = None,
                      device: torch.device | str = "cuda",
-                     cfg_file: Optional[str] = None):
+                     cfg_file: Optional[str] = None,
+                     precision: Optional[str] = None):
     """Models, data and optimizers on `device`; returns (TrainLoop,
-    outer batches per epoch)."""
+    outer batches per epoch). `precision` (the `--precision` flag's value)
+    wins over `cfg.TRAIN.PRECISION`."""
     from tepose_tpu_torch.config import BASE_DATA_DIR
     from tepose_tpu_torch.data.loaders import get_data_loaders
     from tepose_tpu_torch.data.synthetic import synthetic_loaders
@@ -69,10 +76,9 @@ def build_train_loop(cfg, *, synthetic: bool = False,
     from tepose_tpu_torch.weights import (
         load_checkpoint, state_dict_from_jax_tree)
 
-    if str(cfg.TRAIN.PRECISION) not in ("", "f32", "float32", "default"):
-        raise SystemExit(f"TRAIN.PRECISION {cfg.TRAIN.PRECISION!r}: the "
-                         "port trains in float32 only (bf16 compute is not "
-                         "ported)")
+    compute_dtype = (parse_train_precision(precision) if precision is not None
+                     else parse_train_precision(cfg.TRAIN.PRECISION or
+                                                "float32", "TRAIN.PRECISION"))
     strict_f32()
     logdir = prepare_output_dir(cfg, cfg_file)
     if cfg.SEED_VALUE >= 0:
@@ -120,7 +126,8 @@ def build_train_loop(cfg, *, synthetic: bool = False,
         n_3d=cfg.TRAIN.BATCH_SIZE - n_2d,
         update_theta_rate=cfg.TRAIN.UPDATE_THETA_RATE,
         disc_update_steps=cfg.TRAIN.MOT_DISCR.UPDATE_STEPS,
-        num_gcn_scales=gcn.num_gcn_scales, num_g3d_scales=gcn.num_g3d_scales)
+        num_gcn_scales=gcn.num_gcn_scales, num_g3d_scales=gcn.num_g3d_scales,
+        compute_dtype=compute_dtype)
     # each process loads its rows of every training batch
     check_divisible(hp, distributed.process_count())
     shard_kw = dict(num_shards=distributed.process_count(),
@@ -268,14 +275,12 @@ def main():
         sys.argv.remove("--synthetic")
     smoke_iters = _take("--smoke-iters", int)
     smoke_verts = _take("--smoke-verts", int)
+    precision = None
     if "--precision" in sys.argv:
-        i = sys.argv.index("--precision")
-        precision = sys.argv[i + 1] if i + 1 < len(sys.argv) else None
-        if precision not in ("float32", "f32"):
-            raise SystemExit(
-                f"--precision {precision!r}: the port trains in float32 "
-                "only; bf16 compute is not ported")
-        del sys.argv[i:i + 2]
+        if sys.argv.index("--precision") + 1 >= len(sys.argv):
+            raise SystemExit("--precision needs a value (bf16 or float32)")
+        precision = _take("--precision")
+        parse_train_precision(precision)
     cfg, cfg_file, args = parse_args()
     device = gpu_device(args.gpu)
     if devices is not None and not os.environ.get(
@@ -290,6 +295,7 @@ def main():
     try:
         return run_train(cfg, profile=profile, synthetic=synthetic,
                          smoke_iters=smoke_iters, smoke_verts=smoke_verts,
-                         device=device, cfg_file=cfg_file)
+                         device=device, cfg_file=cfg_file,
+                         precision=precision)
     finally:
         distributed.shutdown()

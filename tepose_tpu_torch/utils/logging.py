@@ -1,9 +1,11 @@
 """Logging and metric sinks of the training loop.
 
 Copies of `tepose_tpu/utils/logging.py` (`create_logger`,
-`prepare_output_dir`, `MetricWriter`, `AverageMeter`; importing that module
-would import JAX through the `tepose_tpu` package), pinned equal to them by
-tests/test_torch_train_loop.py. In a multi-process run
+`prepare_output_dir`, `MetricWriter`, `AverageMeter`, `import_class`, and
+`move_dict_to_device` with an explicit torch device in place of JAX's
+default device; importing that module would import JAX through the
+`tepose_tpu` package), pinned equal to them by
+tests/test_torch_train_loop.py and tests/test_torch_host.py. In a multi-process run
 (`parallel/distributed.py`) only the primary writes files: the log file,
 the metrics and the config snapshot; the others log to the console as
 `[p{rank}]`, and the primary's timestamped logdir is broadcast so every
@@ -21,6 +23,8 @@ import os
 import os.path as osp
 import time
 from typing import Dict, Optional
+
+import torch
 
 from tepose_tpu_torch.parallel import distributed
 
@@ -109,3 +113,20 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / max(self.count, 1)
+
+
+def import_class(name: str):
+    """Dotted-path import (ref: utils.py:203-208)."""
+    import importlib
+
+    module, cls = name.rsplit(".", 1)
+    return getattr(importlib.import_module(module), cls)
+
+
+def move_dict_to_device(d: dict, device: torch.device | str) -> dict:
+    """Place every array value of `d` on `device` as a tensor, in place
+    (ref: utils.py:48-54); other values stay as they are."""
+    for k, v in d.items():
+        if hasattr(v, "shape"):
+            d[k] = torch.as_tensor(v, device=device)
+    return d

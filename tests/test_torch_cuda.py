@@ -469,3 +469,23 @@ def test_world1_nccl_segment_matches_plain(cuda):
         for k, v in want[1][g].items():
             assert np.abs(got[1][g][k] - v).max() <= 1e-6 * max(
                 np.abs(v).max(), 1e-12), (g, k)
+
+
+def test_bf16_train_window_gate_on_cuda(cuda):
+    """bf16 training compute on the card at small width: the one-window
+    gate of tools/bf16_gate.py against the float32 window (update cosine
+    > 0.98, relative norm < 0.2, losses within 5 %, metrics finite, all
+    state float32), with no LBS launch in the step."""
+    import bf16_gate
+    import make_torch_train_golden as tg
+
+    spec = dict(tg.FULL_SPEC, n_layers=1, hidden_size=32, num_verts=64,
+                n_2d=2, n_3d=3, num_gcn_scales=3, num_g3d_scales=2,
+                windows=(1,))
+    before = LS.LAUNCHES
+    f32 = bf16_gate.port_window(spec, cuda, None)
+    bf16 = bf16_gate.port_window(spec, cuda, "bfloat16")
+    torch.cuda.synchronize()
+    res = bf16_gate.gate(f32, bf16)
+    assert all(ok for _, _, ok in res.values()), res
+    assert LS.LAUNCHES == before

@@ -307,8 +307,10 @@ def test_run_eval_rejects_later_slice_flags(flag, monkeypatch):
     # --devices is ported: more CUDA devices than are visible exit, naming
     # the count
     (["--devices", "64"], "only [0-9]+ are visible"),
-    (["--precision", "tensorfloat32"], "float32 only"),
-    (["--precision"], "float32 only"),
+    # --precision takes the JAX CLI's tiers (tests/test_torch_bf16.py runs
+    # them); unknown values and a missing value exit
+    (["--precision", "fp8"], "unknown --precision 'fp8': choose float32"),
+    (["--precision"], "--precision needs a value"),
 ])
 def test_main_rejects_unported_options(monkeypatch, argv, match):
     monkeypatch.setattr(sys, "argv", ["evaluate", "--synthetic"] + argv)

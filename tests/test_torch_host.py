@@ -330,3 +330,161 @@ def test_native_matches_jax_and_numpy(rng):
         np.testing.assert_allclose(got.astype(np.float32),
                                    ref.astype(np.float32),
                                    atol=1e-4 if normalize else 1, rtol=0)
+
+
+# ------------------------------------------------ the last host copies
+
+
+def test_multiple_datasets_copy_matches():
+    """MultipleDatasets in both modes draws the same items as JAX's."""
+    from tepose_tpu.data.datasets import MultipleDatasets as JMD
+    from tepose_tpu_torch.data.datasets import MultipleDatasets as TMD
+
+    members = [list(range(5)), list(range(100, 103)), list(range(200, 207))]
+    for same_len in (True, False):
+        a, b = (M(members, make_same_len=same_len, seed=3)
+                for M in (JMD, TMD))
+        assert len(a) == len(b)
+        assert [a[i] for i in range(len(a))] == [b[i] for i in range(len(b))]
+    with pytest.raises(IndexError):
+        TMD(members, make_same_len=False)[len(b)]
+
+
+def test_full_video_datasets_and_feature_windows_match(rng):
+    """ThreeDPW_TEST / Human36M_VAL over a synthetic 3D DB, and
+    FeatureDataset's windows: every item equal to the JAX copy's."""
+    from tepose_tpu.data import datasets as JD
+    from tepose_tpu_torch.data import datasets as TD
+    from tests.test_datasets import synthetic_3d_db
+
+    db, pse = synthetic_3d_db(rng, videos=((20, "a"), (9, "b"), (30, "c")))
+    for name in ("ThreeDPW_TEST", "Human36M_VAL"):
+        a = getattr(JD, name)("repr_wopw_3dpw_model", 6, db=db, psetheta=pse)
+        b = getattr(TD, name)("repr_wopw_3dpw_model", 6, db=db, psetheta=pse)
+        assert len(a) == len(b) > 0
+        for i in range(len(a)):
+            _eq(a[i], b[i])
+    feats = rng.randn(11, 2048).astype(np.float32)
+    a, b = JD.FeatureDataset(feats, 6), TD.FeatureDataset(feats, 6)
+    assert len(a) == len(b) == 6
+    for i in range(len(a)):
+        _eq(a[i], b[i])
+    assert len(TD.FeatureDataset(feats[:4], 6)) == 0
+
+
+def test_crop_dataset_matches(rng):
+    """CropDataset on frames and on a frame callable: the port's native
+    crops equal the JAX package's for every bbox."""
+    from tepose_tpu.data.datasets import CropDataset as JC
+    from tepose_tpu_torch.data.datasets import CropDataset as TC
+
+    frames = [rng.randint(0, 255, (120, 160, 3)).astype(np.uint8)
+              for _ in range(3)]
+    boxes = np.array([[80, 60, 50, 90], [70, 65, 40, 60], [90, 50, 70, 70],
+                      [60, 40, 30, 50]], np.float32)
+    ids = [0, 2, 1, 2]
+    for src in (frames, lambda i: frames[i]):
+        a = JC(src, boxes, frame_ids=ids, crop_size=64)
+        b = TC(src, boxes, frame_ids=ids, crop_size=64)
+        assert len(a) == len(b) == 4
+        for i in range(4):
+            x, y = a[i], b[i]
+            assert y.shape == (3, 64, 64) and y.dtype == np.float32
+            np.testing.assert_array_equal(x, y)
+
+
+def test_pose_metrics_and_procrustes_match(rng):
+    """align_pelvis, vertex_error and similarity_transform on tensors
+    against the JAX functions (1e-6)."""
+    import jax.numpy as jnp
+    import torch
+
+    from tepose_tpu.ops import procrustes as JP
+    from tepose_tpu_torch.ops import procrustes as TP
+
+    j = rng.randn(4, 5, 14, 3).astype(np.float32)
+    np.testing.assert_allclose(TM.align_pelvis(torch.from_numpy(j)).numpy(),
+                               np.asarray(JM.align_pelvis(jnp.asarray(j))),
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        TM.align_pelvis(torch.from_numpy(j), 0, 4).numpy(),
+        np.asarray(JM.align_pelvis(jnp.asarray(j), 0, 4)), atol=1e-6)
+    p, t = (rng.randn(6, 300, 3).astype(np.float32) for _ in range(2))
+    np.testing.assert_allclose(
+        TM.vertex_error(torch.from_numpy(p), torch.from_numpy(t)).numpy(),
+        np.asarray(JM.vertex_error(jnp.asarray(p), jnp.asarray(t))),
+        rtol=1e-6)
+    S1 = rng.randn(14, 3).astype(np.float32)
+    R = np.linalg.qr(rng.randn(3, 3))[0].astype(np.float32)
+    S2 = (1.3 * S1 @ R.T + 0.2 + 0.01 * rng.randn(14, 3)).astype(np.float32)
+    got = TP.similarity_transform(torch.from_numpy(S1), torch.from_numpy(S2))
+    want = np.asarray(JP.similarity_transform(jnp.asarray(S1),
+                                              jnp.asarray(S2)))
+    assert got.shape == (14, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_import_class_and_move_dict_to_device():
+    """import_class resolves what JAX's does; move_dict_to_device puts
+    every array on the given device as a tensor of the values JAX's puts
+    there, and leaves other values alone."""
+    import torch
+
+    from tepose_tpu.utils import logging as JLOG
+    from tepose_tpu_torch.utils import logging as TLOG
+
+    for name in ("collections.OrderedDict",
+                 "tepose_tpu_torch.eval.tester.Tester"):
+        assert TLOG.import_class(name) is JLOG.import_class(name)
+    src = {"a": np.arange(6, dtype=np.float32).reshape(2, 3),
+           "b": np.array([1, 2], np.int64), "name": "x", "n": 3}
+    got = TLOG.move_dict_to_device(dict(src), "cpu")
+    want = JLOG.move_dict_to_device(dict(src))
+    assert got.keys() == want.keys()
+    for k in ("a", "b"):
+        assert isinstance(got[k], torch.Tensor) and got[k].device.type == "cpu"
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+        # the source dtype stays (JAX narrows int64 to its int32 default)
+        assert got[k].numpy().dtype == src[k].dtype
+    assert got["name"] == want["name"] == "x" and got["n"] == want["n"] == 3
+
+
+def test_tester_matches_jax(rng):
+    """Tester.test on a TePose module against the JAX Tester on the same
+    weights (as JAX params): every metric within 1e-4 relative (mm), the
+    bar of tests/test_torch_train_loop.py::test_validate_epoch_matches_jax."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from tepose_tpu.eval.tester import Tester as JTester
+    from tepose_tpu.models.smpl import synthetic_smpl_model as jax_smpl
+    from tepose_tpu.models.tepose import TePoseConfig as JCfg
+    from tepose_tpu_torch.data import datasets as TD
+    from tepose_tpu_torch.data.loaders import stack_items
+    from tepose_tpu_torch.eval.tester import Tester as TTester
+    from tepose_tpu_torch.models.smpl import synthetic_smpl_model
+    from tepose_tpu_torch.models.tepose import TePose, TePoseConfig
+    from tepose_tpu_torch.weights import jax_tree_from_state_dict
+    from tests.test_datasets import synthetic_3d_db
+
+    S, V = 6, 48
+    gen = TePose(TePoseConfig(S, 1, 16, fast_encoder=True),
+                 generator=torch.Generator().manual_seed(0), device="cpu")
+    db, pse = synthetic_3d_db(rng, videos=((14, "a"), (17, "b"), (20, "c")))
+    ds = TD.Dataset3D("repr_wopw_3dpw_model", "val", S, 16, "3dpw", db=db,
+                      psetheta=pse)
+    batches = [stack_items([ds[i] for i in range(len(ds))])]
+    jreg = (np.random.RandomState(7).rand(17, V) ** 8).astype(np.float32)
+    jreg /= jreg.sum(1, keepdims=True)
+    got = TTester(cfg=None, gen=gen, smpl=synthetic_smpl_model(0, V),
+                  valid_loader=batches, j_regressor=jreg).test()
+    with jax.default_matmul_precision("float32"):
+        want = JTester(
+            cfg=None, gen_params=jax.tree_util.tree_map(
+                jnp.asarray, jax_tree_from_state_dict(gen.state_dict())),
+            smpl=jax_smpl(0, V), model_cfg=JCfg(S, 1, 16, fast_encoder=True),
+            valid_loader=batches, j_regressor=jreg).test()
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)

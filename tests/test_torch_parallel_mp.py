@@ -9,6 +9,8 @@
   * `MaskedBatchNorm`'s global statistics, running statistics and input
     gradients on 2 ranks against the one-process module;
   * `parallel.mp_dryrun.spawn_and_compare` (2 ranks);
+  * 2 ranks at rate 0.9 with bf16 compute and with the shared fake
+    discriminator pass against one process with the same;
   * `python -m tepose_tpu_torch.train --synthetic --gpu cpu` as 2
     processes joined through the TEPOSE_* environment: only the primary
     writes files; `--devices N`'s launcher (`train.run.launch_ranks`).
@@ -70,11 +72,18 @@ def _two_threads():
     torch.set_num_threads(saved)
 
 
-def _setup(rate: float):
+VARIANTS = {"": {}, "bf16": {"compute_dtype": "bfloat16"},
+            "share": {"share_fake_disc": True}}
+
+
+def _setup(rate: float, variant: str = ""):
     """The port's models, optimizers and global batch for SPEC at
-    `update_theta_rate` rate, with uneven valid rows and GAN rows."""
+    `update_theta_rate` rate, with uneven valid rows and GAN rows, and the
+    `VARIANTS` entry's hyperparameters (bf16 compute, the shared fake
+    discriminator pass)."""
     setup = golden_writer.port_setup(SPEC, "cpu")
-    setup["hp"] = dataclasses.replace(setup["hp"], update_theta_rate=rate)
+    setup["hp"] = dataclasses.replace(setup["hp"], update_theta_rate=rate,
+                                      **VARIANTS[variant])
     b3 = setup["batch_3d"]
     b3["vidlen_each"][4:] = SPEC["seqlen"] + 1     # and row 2 (make_batch)
     b3["w_smpl"][5] = 0.0                          # rows 1, 4 and 5 in the GAN
@@ -155,8 +164,10 @@ def _worker(argv) -> None:
                 for k, v in _bn_case(rank, world).items():
                     res[f"bn/{k}"] = np.asarray(v)
                 continue
-            rate = float(job.split(":")[1])
-            got = _segment(_setup(rate), dropout=rate < 1.0, sharded=True)
+            _, rate, variant = (job + ":").split(":")[:3]
+            rate = float(rate)
+            got = _segment(_setup(rate, variant), dropout=rate < 1.0,
+                           sharded=True)
             for k, v in _flat(got).items():
                 res[f"{job}/{k}"] = v
     finally:
@@ -263,8 +274,10 @@ def one_process_dropout():
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     """Rank 0's results of the 2-rank jobs: the segment at rate 1.0
-    (dropout off) and at 0.9 (dropout on), and the BatchNorm case."""
-    return _Npz(_run_ranks(2, ["seg:1.0", "seg:0.9", "bn"],
+    (dropout off) and at 0.9 (dropout on), at 0.9 with bf16 compute and
+    with the shared fake discriminator pass, and the BatchNorm case."""
+    return _Npz(_run_ranks(2, ["seg:1.0", "seg:0.9", "seg:0.9:bf16",
+                               "seg:0.9:share", "bn"],
                            tmp_path_factory.mktemp("mp")))
 
 
@@ -349,6 +362,39 @@ def test_ranks_match_one_process_with_dropout(world, two_ranks,
         > 1e-5 * abs(got["losses"]["gen_loss"])
 
 
+@pytest.mark.parametrize("variant", ["bf16", "share"])
+def test_ranks_compose_with_bf16_and_shared_disc(variant, two_ranks):
+    """2 ranks at rate 0.9 with dropout, with bf16 compute or with the
+    shared fake discriminator pass, against one process with the same: the
+    flat gradient all-reduce stays float32 and the masked BN all-reduces
+    float32 sums (the shared pass once a window where two calls would
+    twice). The shared pass is held at every segment bar; bf16, where the
+    ranks' global BN statistics round the bf16 activations apart from one
+    process's, at the bf16 gate's bars (tools/bf16_gate.py) on each net's
+    change over the segment: cosine > 0.98, relative norm < 0.2, losses
+    within 5 % (measured: gen 0.99986 / 0.016, disc 0.990 / 0.141, losses
+    2.5e-3)."""
+    want = _segment(_setup(0.9, variant), dropout=True, sharded=False)
+    got = _unflat(two_ranks, f"seg:0.9:{variant}")
+    for group in ("gen", "disc", "disc_state"):
+        assert all(np.asarray(v).dtype == np.float32
+                   for v in got[group].values()), group
+    if variant == "share":
+        _assert_segment_bars(got, want)
+        return
+    for k, v in want["losses"].items():
+        np.testing.assert_allclose(got["losses"][k], v, rtol=0.05,
+                                   err_msg=k)
+    init = golden_writer.port_state(_setup(0.9, variant))
+    for group in ("gen", "disc"):
+        a, b = (np.concatenate([(seg[group][k] - init[group][k]).ravel()
+                                for k in sorted(init[group])])
+                .astype(np.float64) for seg in (want, got))
+        cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+        rel = np.linalg.norm(b - a) / np.linalg.norm(a)
+        assert cos > 0.98 and rel < 0.2, (group, cos, rel)
+
+
 def test_masked_batchnorm_global_statistics(two_ranks):
     """2 ranks (3 and 1 masked rows) against one module over all 8 rows:
     outputs, input gradients, the summed weight and bias gradients and the
@@ -424,12 +470,12 @@ def test_train_cli_two_processes(tmp_path):
 def test_launch_ranks_runs_every_rank_and_stops_on_failure(monkeypatch):
     """`--devices N`'s launcher starts N ranks of the CLI joined through
     the TEPOSE_* environment (each here exits at `--help`) and returns the
-    first failing rank's exit code (a refused option)."""
+    first failing rank's exit code (a precision train.py refuses)."""
     from tepose_tpu_torch.train import run as TRUN
 
     monkeypatch.setenv("OMP_NUM_THREADS", "2")
     assert TRUN.launch_ranks(2, ["--help"]) == 0
-    assert TRUN.launch_ranks(2, ["--synthetic", "--precision", "bf16"]) != 0
+    assert TRUN.launch_ranks(2, ["--synthetic", "--precision", "fp8"]) != 0
 
 
 if __name__ == "__main__":

@@ -443,7 +443,11 @@ def test_run_train_cpu_epoch_checkpoint_and_resume(tmp_path):
     # is checked against the visible count
     (["--profile", "x", "--devices", "64"],
      "only [0-9]+ CUDA devices are visible"),
-    (["--precision", "bf16"], "float32 only"),
+    # --precision bf16 is ported (bf16 compute): parsed, then --devices is
+    # checked; values JAX's train.py rejects exit with its message
+    (["--precision", "bf16", "--devices", "64"],
+     "only [0-9]+ CUDA devices are visible"),
+    (["--precision", "fp8"], r"unknown --precision 'fp8' \(choose bf16"),
 ])
 def test_main_rejects_unported_options(monkeypatch, argv, match):
     monkeypatch.setattr(sys, "argv", ["train", "--synthetic"] + argv)
