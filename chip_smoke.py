@@ -9,7 +9,7 @@ Phases, each of which raises on failure (no phase's error is caught):
      the card's name and power limit as nvidia-smi reports them;
   1. build every CUDA kernel of the port from csrc/ with nvcc;
   2. LBS skinning kernel against its plain PyTorch version on the card, at
-     V = 6890 with B in {1, 8, 32, 192, 256} (the main path's launch sizes
+     V = 6890 with B in {1, 3, 8, 32, 128, 192, 256} (the main path's launch sizes
      and a large batch), at ragged V in {700, 301} with B = 3, and on inputs
      that are views at storage offset 1 of larger buffers (contiguous, only
      4-byte aligned): max abs error <= 1e-5; a non-contiguous input must
@@ -189,9 +189,23 @@ Phases, each of which raises on failure (no phase's error is caught):
      tier (float32, tensorfloat32, bfloat16) with equal LBS launches, and
      each tier's rollout on phase 3's batch and on one 520-frame video
      against the port in float64 (skinned by the plain einsum as an
-     oracle, `plain_skinning`): max joint and MPVPE deviation in mm,
+     oracle, `precision_sweep.plain_skinning`): max joint and MPVPE
+     deviation in mm,
      frames/s, LBS launches; float32 must stay within 0.1 mm. Outputs
      under build/chip_smoke_bf16/.
+ 14. the eval tuning tools, full width: (a) `python -m
+     tepose_tpu_torch.tune_eval_batching` on 3DPW and H36M at --scale 0.25
+     (lengths clipped to 100 frames so a point costs about one chunk a
+     bucket) over the 2 x 2 grid of MAX_B {the JAX CLI's,
+     `evaluate.EVAL_BATCHING`'s} x bucket {none (the default), the JAX
+     CLI's}, each row finite with LBS launches; (b) `run_eval(--synthetic,
+     3dpw)` with the defaults and with --eval_batch 32 --eval_bucket 128
+     (the JAX CLI's chunks): per-video J14 and MPVPE within 1e-6 m,
+     frames/s and LBS launches of both; (c)
+     `precision_sweep.measure_accuracy` (F = 66, B = 2): float32 within
+     0.1 mm of float64. It first checks that phase 2 held the kernel at
+     `EVAL_BATCHING`'s batches and at phase 3's. Outputs under
+     build/chip_smoke_tuning/.
 
 With `--timings` it runs phases 0, 1, 5 and 7, and phase 8c on a fresh
 training loop after one untimed segment, and prints no kernels or ok line:
@@ -219,10 +233,12 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 KERNEL_ATOL = 1e-5       # fp32, as tests/test_lbs_pallas.py holds the kernel
-# phase 2's shapes: the main path's launch sizes at V = 6890 (eval 32 and
-# 192, engine 8, live 1) and the large batch; ragged vertex counts; views at
-# storage offset 1 for one and for four vertices per thread
-LBS_V, LBS_BATCHES = 6890, (1, 8, 32, 192, 256)
+# phase 2's shapes: the main path's launch sizes at V = 6890 (eval's 3 on
+# phase 3's synthetic videos and EVAL_BATCHING's MAX_B 32 and 128, the mesh's
+# 192, engine 8, live 1; phase 14 checks that eval's are here) and the large
+# batch; ragged vertex counts; views at storage offset 1 for one and for four
+# vertices per thread
+LBS_V, LBS_BATCHES = 6890, (1, 3, 8, 32, 128, 192, 256)
 LBS_RAGGED = ((700, 3), (301, 3))
 LBS_OFFSET = ((LBS_V, 3), (700, 8), (LBS_V, 32))
 GOLDEN_J3D_ATOL = 1e-4   # 0.1 mm, the reproduction bar (BASELINE.md:64)
@@ -2021,29 +2037,12 @@ P13_TIERS = ("float32", "tensorfloat32", "bfloat16")
 P13_VIDEO = 520          # frames: the reference's longest eval video
 
 
-@contextlib.contextmanager
-def plain_skinning():
-    """SMPL skins through the plain einsum inside: the float64 oracle's
-    mesh (the kernel takes float32 only), not a fallback of any path."""
-    import tepose_tpu_torch.models.smpl as smpl_mod
-    from tepose_tpu_torch.ops.lbs_skinning import lbs_skinning_reference
-
-    saved = smpl_mod.lbs_skinning
-    smpl_mod.lbs_skinning = lbs_skinning_reference
-    try:
-        yield
-    finally:
-        smpl_mod.lbs_skinning = saved
-
-
 def p13_name(cd, n2, n3, share) -> str:
     return (f"{'bf16' if cd else 'f32'}_b{n2 + n3}"
             + ("_shared_disc" if share else ""))
 
 
 def phase13_bf16(card: str) -> dict:
-    import copy
-
     import bf16_gate
     import make_torch_train_golden as tg
     import tepose_tpu_torch.ops.lbs_skinning as lbs
@@ -2051,8 +2050,7 @@ def phase13_bf16(card: str) -> dict:
     from tepose_tpu_torch.config import parse_args, update_cfg
     from tepose_tpu_torch.evaluate import (
         build_models, make_eval_batch, run_eval, synthetic_eval_data)
-    from tepose_tpu_torch.eval.evaluator import eval_rollout
-    from tepose_tpu_torch.precision import tier_scope
+    from tepose_tpu_torch.precision_sweep import rollout, tier_models
     from tepose_tpu_torch.train.optim import opt_state_leaves
     from tepose_tpu_torch.train.run import build_train_loop, close_loaders
     from tepose_tpu_torch.train.trainer import train_segment
@@ -2238,35 +2236,24 @@ def phase13_bf16(card: str) -> dict:
                              [len(d["features"]) for d in data.values()]),
               "video_520": (make_eval_batch(video, list(video), S,
                                             P13_VIDEO, 1), [P13_VIDEO])}
-    models = {"float64": (copy.deepcopy(gen).double(),
-                          copy.deepcopy(vibe).double(),
-                          copy.deepcopy(smpl).double(), jreg.double(), None),
-              "bfloat16": (copy.deepcopy(gen).to(torch.bfloat16),
-                           copy.deepcopy(vibe).to(torch.bfloat16), smpl, jreg,
-                           torch.bfloat16)}
+    models = {t: tier_models((smpl, gen, vibe, jreg), t)
+              for t in ("float64",) + P13_TIERS}
     for case, (batch, lengths) in inputs.items():
         outs = {}
         for tier in ("float64",) + P13_TIERS:
-            g, v, sm, jr, cd = models.get(tier, (gen, vibe, smpl, jreg, None))
-            dt = torch.float64 if tier == "float64" else torch.float32
-            x = [torch.from_numpy(batch[k]).to("cuda", dt)
-                 for k in ("feats", "theta_pseu", "theta_gt")]
-            W = x[0].shape[1] - S + 1
-            with (plain_skinning() if tier == "float64"
-                  else contextlib.nullcontext()), \
-                    tier_scope("float32" if tier == "float64" else tier):
-                lbs.LAUNCHES = 0
-                t0 = time.perf_counter()
-                outs[tier] = eval_rollout(g, v, sm, *x, jr, W, cd)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
+            lbs.LAUNCHES = 0
+            t0 = time.perf_counter()
+            outs[tier] = rollout(models[tier], tier, batch["feats"],
+                                 batch["theta_pseu"], batch["theta_gt"],
+                                 "cuda")
+            secs = time.perf_counter() - t0
             if tier == "float64":
                 if lbs.LAUNCHES:
                     raise RuntimeError("the float64 oracle launched the "
                                        "float32 kernel")
                 continue
             ref = outs["float64"]
-            dev = {k: 1e3 * max(float((outs[tier][k][i, :n].double()
+            dev = {k: 1e3 * max(float((outs[tier][k][i, :n]
                                        - ref[k][i, :n]).abs().max())
                                 for i, n in enumerate(lengths))
                    for k in ("pred_j3d", "mpvpe")}
@@ -2295,6 +2282,110 @@ def phase13_bf16(card: str) -> dict:
     lap("d")
     print(f"phase 13: seconds by part {json.dumps(res['seconds'])}")
     print(json.dumps({"bf16": res}, default=str))
+    return res
+
+
+P14_DIR = os.path.join(REPO, "build", "chip_smoke_tuning")
+P14_SCALE = 0.25         # the tuner's --scale: 15 3DPW and 30 H36M videos
+P14_MAX_LEN = 100        # --max_len: one bucket a size, to fit the phase
+P14_JAX_DEFAULTS = {"3dpw": (32, 128), "h36m": (8, 256)}
+P14_VIDEO_ATOL = 1e-6    # m: rows are independent, so plans agree
+
+
+def phase14_tuning(card: str) -> dict:
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from tepose_tpu_torch import precision_sweep, tune_eval_batching
+    from tepose_tpu_torch.config import parse_args
+    from tepose_tpu_torch.evaluate import (
+        EVAL_BATCHING, plan_eval_batches, run_eval, synthetic_eval_data)
+
+    res = {"sweep": {}, "launches": {}, "seconds": {}}
+    t_phase = time.perf_counter()
+
+    def lap(part: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        res["seconds"][part] = now - t_phase
+        t_phase = now
+
+    lengths = {n: len(d["features"]) for n, d in synthetic_eval_data().items()}
+    eval_bs = {B for _, _, B in plan_eval_batches(
+        lengths, tune_eval_batching.SEQLEN, EVAL_BATCHING["3dpw"])}
+    missing = (eval_bs | set(EVAL_BATCHING.values())) - set(LBS_BATCHES)
+    if missing:
+        raise RuntimeError(f"phase 2 does not hold the kernel at eval's "
+                           f"default batch {sorted(missing)}")
+
+    # (a) the tuner on a 2 x 2 grid holding the JAX and the new defaults
+    os.makedirs(P14_DIR, exist_ok=True)
+    for ds, key in (("3dpw", "3dpw"), ("h36m", "long")):
+        jax_b, jax_bucket = P14_JAX_DEFAULTS[ds]
+        lbs.LAUNCHES = 0
+        entry = tune_eval_batching.main([
+            "--dataset", ds, "--scale", str(P14_SCALE),
+            "--max_len", str(P14_MAX_LEN),
+            "--batches", *map(str, sorted({jax_b, EVAL_BATCHING[key]})),
+            "--bucket_sizes", "0", str(jax_bucket),
+            "--out", os.path.join(P14_DIR, "sweep.json")])
+        res["launches"][f"tuner_{ds}"] = lbs.LAUNCHES
+        res["sweep"][ds] = entry
+        for name, r in entry["results"].items():
+            print(f"phase 14a: {ds} {name}: {r['useful_fps']:.1f} useful "
+                  f"frames/s (passes {r['useful_fps_by_pass']}), "
+                  f"{r['window_steps']} steps, {r['ms_per_step']:.3f} ms a "
+                  f"step, peak {r['peak_memory_gb']:.3f} GB, lbs launches "
+                  f"{r['lbs_launches']} [{card}]")
+            if not (np.isfinite(r["useful_fps"]) and r["lbs_launches"] > 0):
+                raise RuntimeError(f"the tuner's row {ds} {name} failed")
+    lap("a")
+
+    # (b) run_eval with the defaults and with the JAX CLI's chunks
+    cfg, _, args = parse_args([
+        "--cfg", os.path.join(REPO, "configs", "repr_wopw_3dpw_model.yaml"),
+        "--dataset", "3dpw"])
+    runs = {}
+    for name, (batch, bucket) in (("new_defaults", (None, None)),
+                                  ("jax_chunks", (32, 128))):
+        args.eval_batch, args.eval_bucket = batch, bucket
+        videos = {}
+        lbs.LAUNCHES = 0
+        out = run_eval(cfg, args, synthetic=True, device="cuda",
+                       per_video=videos)
+        torch.cuda.synchronize()
+        res["launches"][f"eval_{name}"] = lbs.LAUNCHES
+        runs[name] = (out, videos)
+        print(f"phase 14b: run_eval synthetic 3dpw, {name} "
+              f"(eval_batch {batch}, eval_bucket {bucket}): "
+              f"{out['frames'] / out['seconds']:.1f} frames/s, lbs launches "
+              f"{lbs.LAUNCHES} [{card}]")
+        if lbs.LAUNCHES <= 0:
+            raise RuntimeError(f"run_eval ({name}) never launched the lbs "
+                               f"kernel")
+    (_, new), (_, old) = runs["new_defaults"], runs["jax_chunks"]
+    dev = max(float(np.abs(new[n][k] - old[n][k]).max())
+              for n in old for k in ("pred_j3d", "mpvpe"))
+    res["per_video_max_dev_m"] = dev
+    print(f"phase 14b: per-video J14 and MPVPE, defaults against the JAX "
+          f"CLI's chunks: "
+          f"max deviation {dev:.3e} m over {len(old)} videos (bar "
+          f"{P14_VIDEO_ATOL:g})")
+    if sorted(new) != sorted(old) or not dev <= P14_VIDEO_ATOL:
+        raise RuntimeError(f"the plans disagree per video: {dev} m")
+    lap("b")
+
+    # (c) the precision sweep's accuracy half, F = 66, B = 2, full width
+    lbs.LAUNCHES = 0
+    acc, shapes = precision_sweep.measure_accuracy("cuda")
+    torch.cuda.synchronize()
+    res["launches"]["precision_sweep"] = lbs.LAUNCHES
+    res["accuracy"] = acc
+    print(f"phase 14c: tiers against float64 ({shapes}): "
+          f"{json.dumps(acc)}; lbs launches {lbs.LAUNCHES} [{card}]")
+    if not precision_sweep.passes_bar(acc["float32"]) or lbs.LAUNCHES <= 0:
+        raise RuntimeError(f"float32 misses the 0.1 mm bar: "
+                           f"{acc['float32']}")
+    lap("c")
+    print(f"phase 14: seconds by part {json.dumps(res['seconds'])}")
     return res
 
 
@@ -2353,13 +2444,15 @@ def main() -> None:
     p11 = timed(11, phase11_preprocess, card)
     p12 = timed(12, phase12_parallel, card, sl, p6, p7)
     p13 = timed(13, phase13_bf16, card)
+    p14 = timed(14, phase14_tuning, card)
     print(f"seconds by phase: {json.dumps(spent)}")
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
     by_path = {"eval": sl["launches"], "engine": p5["launches"],
                "live": p6["launches"], "train_validation": p8["launches"],
                **p9["launches"], "verify_release": p10["launches"],
-               **p11["launches"], **p12["launches"], **p13["launches"]}
+               **p11["launches"], **p12["launches"], **p13["launches"],
+               **p14["launches"]}
     for B, r in {**p9["lbs"], **p11["lbs"]}.items():
         kern["device_ms"][B], kern["plain_ms"][B] = r["ms"], r["plain_ms"]
         kern["bound"][B] = (r["bound_ms"], r["bound_by"])

@@ -171,14 +171,17 @@ def parse_args(argv: Optional[list] = None):
     parser.add_argument("--frame", type=int, default=0,
                         help="render frame start idx")
     parser.add_argument("--eval_batch", type=int, default=None,
-                        help="videos per eval-scan call; default is the "
-                             "measured per-dataset optimum (32 for 3dpw, 8 "
-                             "for long-video sets; tools/"
-                             "tune_eval_batching.py)")
+                        help="videos per eval rollout call; default is the "
+                             "best of the measured points per dataset of the "
+                             "card's own sweep (evaluate.EVAL_BATCHING, from "
+                             "tepose_tpu_torch/eval_batching_sweep.json, "
+                             "written by python -m tepose_tpu_torch."
+                             "tune_eval_batching on an NVIDIA H100)")
     parser.add_argument("--eval_bucket", type=int, default=None,
-                        help="video length padding bucket for the eval scan "
-                             "(measured default: 128 for 3dpw, 256 for "
-                             "long-video sets)")
+                        help="round each video's length up to a multiple of "
+                             "this many frames and batch within those "
+                             "buckets; default: none, each batch pads to its "
+                             "longest video")
 
     args = parser.parse_args(argv)
     cfg_file = args.cfg

@@ -7,9 +7,18 @@ Counterpart of the repository's `evaluate.py` (JAX):
   python -m tepose_tpu_torch.evaluate --synthetic --dataset 3dpw \
       --cfg configs/repr_wopw_3dpw_model.yaml      # generated data
 
-Videos are bucketed by length, padded and evaluated in batches through
-`eval.evaluator.eval_rollout`, with the same bucket and batch defaults as
-the JAX CLI (`--eval_bucket`, `--eval_batch`). `--precision` takes the
+Videos are sorted by length, cut into chunks of at most `--eval_batch`
+videos, each chunk padded to its longest video, and evaluated through
+`eval.evaluator.eval_rollout` (`plan_eval_batches`). The default batch
+(`EVAL_BATCHING`) is the best measured row of the card's own sweep,
+`tepose_tpu_torch/eval_batching_sweep.json`, written by
+`python -m tepose_tpu_torch.tune_eval_batching`. The port compiles nothing,
+so a new batch shape costs nothing and there is no reason to round lengths
+or rows up; the rollout is launch-bound, a window costing about the same
+whatever the batch, so a pass costs its window steps until the device
+fills. `--eval_bucket N` rounds each video's length up to a multiple of N
+frames and batches within those buckets (the JAX CLI's grouping).
+`--precision` takes the
 JAX CLI's spellings and maps each tier to the card's own arithmetic
 (`precision.py`): `float32` (`highest`; the default, strict float32 with
 TF32 off), `tensorfloat32` (`tf32`, `high`: Hopper TF32 in cuBLAS and
@@ -39,6 +48,69 @@ import numpy as np
 import torch
 
 from tepose_tpu_torch.precision import eval_tier, strict_f32, tier_scope
+
+# MAX_B by dataset: 3dpw's short videos and the long-video sets (h36m,
+# mpii3d). Each is the best measured row of
+# tepose_tpu_torch/eval_batching_sweep.json
+# (`tune_eval_batching.best_row`); tests/test_torch_tuning.py holds the two
+# equal.
+EVAL_BATCHING = {"3dpw": 32, "long": 128}
+
+
+def plan_eval_batches(lengths: Dict[str, int], seqlen: int, max_batch: int,
+                      bucket: int | None = None,
+                      n_devices: int = 1) -> List[tuple]:
+    """The chunks of an eval pass, in the order `run_eval` walks them:
+    (T_pad, names, B) for the videos of `lengths` (name -> frames) that
+    hold at least one window. Without `bucket` the videos are sorted by
+    length (ties in `lengths`' order) and cut into chunks of at most
+    `max_batch`, each padded to its longest video. With `bucket` each video
+    goes to its length rounded up to a multiple of `bucket`, buckets in
+    ascending order, and each bucket splits into chunks of at most
+    `max_batch` in `lengths`' order (the JAX CLI's chunks). A chunk has as
+    many rows as videos, rounded up to a multiple of `n_devices` so the
+    rows split evenly over a mesh. Rows are independent, so no video's
+    output depends on the plan."""
+    def padded(n):
+        return -(-n // bucket) * bucket if bucket else n
+
+    names = sorted((n for n, L in lengths.items() if L >= seqlen),
+                   key=lambda n: padded(lengths[n]))
+    groups: Dict[int, List[str]] = {}
+    for n in names:
+        groups.setdefault(padded(lengths[n]) if bucket else 0, []).append(n)
+    plan = []
+    for group in groups.values():
+        for i in range(0, len(group), max_batch):
+            chunk = group[i:i + max_batch]
+            plan.append((max(padded(lengths[n]) for n in chunk), chunk,
+                         -(-len(chunk) // n_devices) * n_devices))
+    return plan
+
+
+def rollout_chunk(models, data: Dict[str, dict], chunk: List[str],
+                  T_pad: int, B: int, device, compute_dtype=None,
+                  sharded=None) -> Dict[str, np.ndarray]:
+    """One chunk of a plan through the rollout: the batch padded on the
+    host, uploaded, rolled out over T_pad - S + 1 windows by
+    `eval_rollout` (or `sharded`, a `make_sharded_eval_rollout` function)
+    and read back. `models` is (smpl, gen, vibe, j_regressor or None).
+    Returns pred_j3d, pred_theta and mpvpe as numpy arrays."""
+    from tepose_tpu_torch.eval.evaluator import eval_rollout
+
+    smpl, gen, vibe, jreg = models
+    S = gen.cfg.seqlen
+    W = T_pad - S + 1
+    batch = make_eval_batch(data, chunk, S, T_pad, B)
+    if sharded is not None:
+        out = sharded(batch["feats"], batch["theta_pseu"],
+                      batch["theta_gt"], W)
+    else:
+        x = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        out = eval_rollout(gen, vibe, smpl, x["feats"], x["theta_pseu"],
+                           x["theta_gt"], jreg, W, compute_dtype)
+    return {k: out[k].cpu().numpy()
+            for k in ("pred_j3d", "pred_theta", "mpvpe")}
 
 
 def synthetic_j_regressor(num_verts: int) -> np.ndarray:
@@ -202,25 +274,28 @@ def eval_mesh(devices, device: torch.device | str):
 
 def run_eval(cfg, args, synthetic: bool = False, *,
              device: torch.device | str, devices=None,
-             precision: str = "float32") -> Dict[str, float]:
+             precision: str = "float32",
+             per_video: dict | None = None) -> Dict[str, float]:
     """Evaluate on `device`; returns the metric summary (mm) plus `frames`
     (poses evaluated) and `seconds` (wall time of the eval loop).
     `devices` (an int, "auto" or a `parallel.mesh.Mesh`, see `eval_mesh`)
     splits every batch over a mesh. `precision` is a `--precision`
-    spelling; the tier's flags hold inside this call only."""
+    spelling; the tier's flags hold inside this call only. A
+    `per_video` dict receives, per video name, the joints and MPVPE (m)
+    that went into the metrics: {"pred_j3d": (L, K, 3), "mpvpe": (L,)}."""
     tier = eval_tier(precision)
     strict_f32()
     with tier_scope(tier):
-        return _run_eval(cfg, args, synthetic, device, devices, tier)
+        return _run_eval(cfg, args, synthetic, device, devices, tier,
+                         per_video)
 
 
-def _run_eval(cfg, args, synthetic, device, devices, tier):
+def _run_eval(cfg, args, synthetic, device, devices, tier, per_video):
     from tepose_tpu_torch.data.db import (
         eval_db_paths, key_eval_db_by_video, load_db, load_pseudotheta)
     from tepose_tpu_torch.data.kp_utils import convert_kps
     from tepose_tpu_torch.eval.evaluator import (
-        EvalAccumulator, eval_rollout, make_sharded_eval_rollout,
-        spin49_to_eval_format)
+        EvalAccumulator, make_sharded_eval_rollout, spin49_to_eval_format)
 
     dataset = args.dataset
     if args.filter and dataset == "mpii3d":
@@ -251,77 +326,61 @@ def _run_eval(cfg, args, synthetic, device, devices, tier):
                                     target_action=args.seq,
                                     is_mpii3d=(dataset == "mpii3d"))
 
-    # bucket videos by padded length (same defaults as the JAX CLI)
-    names = [n for n in data if len(data[n]["features"]) >= S]
-    lengths = {n: len(data[n]["features"]) for n in names}
-    long_videos = dataset != "3dpw"
-    bsz = getattr(args, "eval_bucket", None) or (256 if long_videos else 128)
-    buckets: Dict[int, List[str]] = {}
-    for n in names:
-        buckets.setdefault(-(-lengths[n] // bsz) * bsz, []).append(n)
+    # the card's default batch (EVAL_BATCHING): no compile to amortise, so
+    # each chunk pads to its own rows and its longest video
+    lengths = {n: len(d["features"]) for n, d in data.items()}
+    plan = plan_eval_batches(
+        lengths, S, getattr(args, "eval_batch", None)
+        or EVAL_BATCHING["3dpw" if dataset == "3dpw" else "long"],
+        getattr(args, "eval_bucket", None), 1 if mesh is None else mesh.size)
 
     acc = EvalAccumulator(dataset=dataset)
     tot_frames = 0
     t_start = time.time()
-    # partial chunks pad to the next power of two, as in the JAX CLI
-    MAX_B = getattr(args, "eval_batch", None) or (8 if long_videos else 32)
-    for T_pad, vids in sorted(buckets.items()):
-        W = T_pad - S + 1
-        for i in range(0, len(vids), MAX_B):
-            chunk = vids[i:i + MAX_B]
-            B = 1 << max(len(chunk) - 1, 0).bit_length()
-            if mesh is not None:
-                # a multiple of the device count, so the rows split evenly
-                # (pad rows are independent)
-                B = -(-B // mesh.size) * mesh.size
-                batch = make_eval_batch(data, chunk, S, T_pad, B)
-                out = sharded(batch["feats"], batch["theta_pseu"],
-                              batch["theta_gt"], W)
-            else:
-                batch = {k: torch.from_numpy(v).to(device) for k, v in
-                         make_eval_batch(data, chunk, S, T_pad, B).items()}
-                out = eval_rollout(gen, vibe, smpl, batch["feats"],
-                                   batch["theta_pseu"], batch["theta_gt"],
-                                   jreg, W, cd)
-            pred_j3d = out["pred_j3d"].cpu().numpy()
-            pred_theta = out["pred_theta"].cpu().numpy()
-            mpvpe = out["mpvpe"].cpu().numpy()
+    for T_pad, chunk, B in plan:
+        out = rollout_chunk((smpl, gen, vibe, jreg), data, chunk, T_pad,
+                            B, device, cd,
+                            sharded if mesh is not None else None)
+        pred_j3d, pred_theta, mpvpe = (
+            out[k] for k in ("pred_j3d", "pred_theta", "mpvpe"))
 
-            for b, n in enumerate(chunk):
-                d = data[n]
-                L = lengths[n]
-                pj = pred_j3d[b, :L]
-                if args.filter:
-                    pj = filter_video_predictions(smpl, pred_theta[b, :L],
-                                                  j_regressor)
-                tgt = d["joints3D"][:L].astype(np.float32)
-                valid_map = None
-                if dataset == "mpii3d":
-                    pj = spin49_to_eval_format(pj, "mpii3d")
-                    tgt = convert_kps(tgt, "spin", "mpii3d_test")
-                    vm = d["valid_i"][:L, 0].nonzero()[0]
-                    if vm.size == 0:
-                        print(f"No valid frames in {n}. Continue")
-                        continue
-                    valid_map = vm[vm < L]
-                elif tgt.shape[1] == 49:
-                    tgt = convert_kps(tgt, "spin", "common")
+        for b, n in enumerate(chunk):
+            d = data[n]
+            L = lengths[n]
+            pj = pred_j3d[b, :L]
+            if args.filter:
+                pj = filter_video_predictions(smpl, pred_theta[b, :L],
+                                              j_regressor)
+            tgt = d["joints3D"][:L].astype(np.float32)
+            valid_map = None
+            if dataset == "mpii3d":
+                pj = spin49_to_eval_format(pj, "mpii3d")
+                tgt = convert_kps(tgt, "spin", "mpii3d_test")
+                vm = d["valid_i"][:L, 0].nonzero()[0]
+                if vm.size == 0:
+                    print(f"No valid frames in {n}. Continue")
+                    continue
+                valid_map = vm[vm < L]
+            elif tgt.shape[1] == 49:
+                tgt = convert_kps(tgt, "spin", "common")
 
-                if args.plot:
-                    from tepose_tpu_torch.eval.metrics import plot_accel
+            if args.plot:
+                from tepose_tpu_torch.eval.metrics import plot_accel
 
-                    plot_accel(pj, tgt, f"./output/{dataset}_test_output",
-                               name=args.seq or n)
+                plot_accel(pj, tgt, f"./output/{dataset}_test_output",
+                           name=args.seq or n)
 
-                if args.render or args.render_plain:
-                    render_eval_video(dataset, n, d, pred_theta[b, :L], smpl,
-                                      args, frame_start=args.frame)
+            if args.render or args.render_plain:
+                render_eval_video(dataset, n, d, pred_theta[b, :L], smpl,
+                                  args, frame_start=args.frame)
 
-                acc.add_video(
-                    pj, tgt,
-                    mpvpe=mpvpe[b, :L] if dataset == "3dpw" else None,
-                    valid_map=valid_map)
-                tot_frames += L
+            acc.add_video(
+                pj, tgt,
+                mpvpe=mpvpe[b, :L] if dataset == "3dpw" else None,
+                valid_map=valid_map)
+            if per_video is not None:
+                per_video[n] = {"pred_j3d": pj, "mpvpe": mpvpe[b, :L]}
+            tot_frames += L
 
     res = acc.summarize()
     dt = time.time() - t_start

@@ -342,7 +342,8 @@ def test_never_imports_jax():
         "          'utils.profiling', 'preprocess.threedpw',\n"
         "          'preprocess.pseudo_theta', 'preprocess.insta',\n"
         "          'data.preprocess', 'parallel.distributed',\n"
-        "          'parallel.mesh', 'parallel.dp', 'parallel.mp_dryrun'):\n"
+        "          'parallel.mesh', 'parallel.dp', 'parallel.mp_dryrun',\n"
+        "          'tune_eval_batching', 'precision_sweep'):\n"
         "    assert 'tepose_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
