@@ -206,6 +206,27 @@ Phases, each of which raises on failure (no phase's error is caught):
      0.1 mm of float64. It first checks that phase 2 held the kernel at
      `EVAL_BATCHING`'s batches and at phase 3's. Outputs under
      build/chip_smoke_tuning/.
+ 15. InstaVariety without h5py (h5py put in sys.modules as None first),
+     against tests/golden/torch_port_insta_f32.npz
+     (tools/make_torch_insta_golden.py): (a) `preprocess.insta.read_data`
+     builds insta_train_db.h5 on the card from 3 fabricated tfrecord shards
+     through `data.h5.H5Writer`; `data.h5.open_h5` reads it back: host
+     arrays equal to the JAX builder's, features within 1e-4 of their
+     magnitude; (b) `preprocess.pseudo_theta.main(--file_name
+     insta_train)` on it and on a DB of the JAX builder's features (LBS
+     launches > 0), the latter's thetas within 1e-5 of their largest
+     magnitude, which a TF32 control must miss; (c)
+     `Insta` items against the JAX `Insta`'s; (d) `build_train_loop`
+     without --synthetic, 2D rows from that file: 2 segments of 3
+     windows, finite losses, ms a window; (e) `mpii3d.read_test_data` on
+     the committed MATLAB v7.3-style annot_data.mat; (f) the writer's and
+     the reader's MB/s on the features. Outputs under
+     build/chip_smoke_insta/.
+
+Phases 2, 9d and 11c also time the library call that computes the LBS
+kernel's function, one `torch.einsum("jv,bjik,bvk->bvi")` over the top
+rows of the transforms and the homogeneous vertices (built outside the
+timed call), in turns with the kernel and its plain version.
 
 With `--timings` it runs phases 0, 1, 5 and 7, and phase 8c on a fresh
 training loop after one untimed segment, and prints no kernels or ok line:
@@ -279,15 +300,58 @@ def phase1_build() -> float:
     return seconds
 
 
+def lbs_times(wT, A, v, plain_launches: int) -> dict:
+    """Device ms per launch, in turns plain/library/kernel/kernel/library/
+    plain, of the LBS kernel, its plain einsum and the library call: one
+    `torch.einsum("jv,bjik,bvk->bvi")` over the top three rows of the
+    transforms and the homogeneous vertices, both built outside the timed
+    call; and the library call's max abs error from the kernel."""
+    from kernel_timing import device_ms
+    from tepose_tpu_torch.ops.lbs_skinning import (
+        lbs_skinning, lbs_skinning_reference)
+
+    A3 = A[:, :, :3, :]
+    vh = torch.cat([v, torch.ones_like(v[..., :1])], -1)
+
+    def kernel():
+        lbs_skinning(wT, A, v)
+
+    def plain():
+        lbs_skinning_reference(wT, A, v)
+
+    def library():
+        return torch.einsum("jv,bjik,bvk->bvi", wT, A3, vh)
+
+    lib_err = float((library() - lbs_skinning(wT, A, v)).abs().max())
+    times = {kernel: [], plain: [], library: []}
+    for fn in (plain, library, kernel, kernel, library, plain):
+        times[fn] += device_ms(fn, launches=50 if fn is kernel
+                               else plain_launches)
+    half = len(times[kernel]) // 2
+    return {"ms": float(np.median(times[kernel])),
+            "plain_ms": float(np.median(times[plain])),
+            "library_ms": float(np.median(times[library])),
+            "library_err": lib_err,
+            "turns": (float(np.median(times[kernel][:half])),
+                      float(np.median(times[kernel][half:])))}
+
+
+def check_library(B: int, t: dict) -> None:
+    """The library call computes the kernel's function."""
+    if not t["library_err"] <= KERNEL_ATOL:
+        raise RuntimeError(f"the one-einsum library call disagrees with the "
+                           f"lbs kernel at B={B}: {t['library_err']}")
+
+
 def phase2_kernel(card: str) -> dict:
-    from kernel_timing import (
-        device_ms, host_us_per_call, lbs_bound, lbs_inputs)
+    from kernel_timing import host_us_per_call, lbs_bound, lbs_inputs
     from tepose_tpu_torch.ops.lbs_skinning import (
         lbs_skinning, lbs_skinning_reference)
 
     dev = torch.device("cuda")
     rs = np.random.RandomState(0)
-    res = {"max_abs_err": 0.0, "device_ms": {}, "plain_ms": {}, "bound": {}}
+    res = {"max_abs_err": 0.0, "device_ms": {}, "plain_ms": {},
+           "library_ms": {}, "bound": {}}
     cases = [(LBS_V, B, 0) for B in LBS_BATCHES]
     cases += [(V, B, 0) for V, B in LBS_RAGGED]
     cases += [(V, B, 1) for V, B in LBS_OFFSET]
@@ -321,24 +385,20 @@ def phase2_kernel(card: str) -> dict:
         raise RuntimeError("lbs kernel accepted a non-contiguous input")
 
     for B, (wT, A, v) in inputs.items():
-        def kernel():
-            lbs_skinning(wT, A, v)
-
-        def plain():
-            lbs_skinning_reference(wT, A, v)
-
-        times = {kernel: [], plain: []}
-        for fn in (plain, kernel, kernel, plain):
-            times[fn] += device_ms(fn, launches=50 if fn is kernel else 10)
-        ms, plain_ms = (float(np.median(times[f])) for f in (kernel, plain))
+        t = lbs_times(wT, A, v, plain_launches=10)
+        ms, plain_ms = t["ms"], t["plain_ms"]
         bound_ms, bound_by = lbs_bound(B, LBS_V, wT.shape[0])
         res["device_ms"][B], res["plain_ms"][B] = ms, plain_ms
+        res["library_ms"][B] = t["library_ms"]
         res["bound"][B] = (bound_ms, bound_by)
+        check_library(B, t)
         print(f"phase 2: lbs B={B} V={LBS_V} device {ms:.5f} ms per launch "
-              f"(turns {np.median(times[kernel][:15]):.5f}/"
-              f"{np.median(times[kernel][15:]):.5f}), bound {bound_ms:.5f} ms "
-              f"({bound_by}), {bound_ms / ms:.1%} of bound; plain einsum "
-              f"{plain_ms:.5f} ms [{card}]")
+              f"(turns {t['turns'][0]:.5f}/{t['turns'][1]:.5f}), bound "
+              f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; "
+              f"plain einsum {plain_ms:.5f} ms; library call (one einsum) "
+              f"{t['library_ms']:.5f} ms, max abs err {t['library_err']:.3e}"
+              f"{' -- FASTER than the kernel' if t['library_ms'] < ms else ''}"
+              f" [{card}]")
     wT, A, v = inputs[32]
     res["host_us"] = host_us_per_call(lambda: lbs_skinning(wT, A, v))
     print(f"phase 2: lbs wrapper host time {res['host_us']:.2f} us per call "
@@ -857,7 +917,7 @@ def mesh_pixels(rendered, frame, results, t: int) -> int:
 
 def phase9_demo(card: str) -> dict:
     import make_torch_demo_golden as dg
-    from kernel_timing import device_ms, lbs_bound, lbs_inputs, profile_device
+    from kernel_timing import lbs_bound, lbs_inputs, profile_device
     import tepose_tpu_torch.models.smpl as smpl_mod
     import tepose_tpu_torch.ops.lbs_skinning as lbs
     from tepose_tpu_torch import demo, native
@@ -1083,24 +1143,17 @@ def phase9_demo(card: str) -> dict:
                      - lbs.lbs_skinning_reference(wT, A, v)).abs().max())
         if not err <= KERNEL_ATOL:
             raise RuntimeError(f"lbs kernel disagrees at B={B}: {err}")
-
-        def kernel():
-            lbs.lbs_skinning(wT, A, v)
-
-        def plain():
-            lbs.lbs_skinning_reference(wT, A, v)
-
-        times = {kernel: [], plain: []}
-        for fn in (plain, kernel, kernel, plain):
-            times[fn] += device_ms(fn, launches=50 if fn is kernel else 5)
-        ms, plain_ms = (float(np.median(times[f])) for f in (kernel, plain))
+        t = lbs_times(wT, A, v, plain_launches=5)
+        check_library(B, t)
+        ms, plain_ms = t["ms"], t["plain_ms"]
         bound_ms, bound_by = lbs_bound(B, LBS_V, wT.shape[0])
         res["lbs"][B] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             library_ms=t["library_ms"], bound_ms=bound_ms,
+                             bound_by=bound_by)
         print(f"phase 9d: lbs B={B} V={LBS_V} max_abs_err={err:.3e}; device "
               f"{ms:.5f} ms per launch, bound {bound_ms:.5f} ms ({bound_by}), "
-              f"{bound_ms / ms:.1%} of bound; plain einsum {plain_ms:.5f} ms "
-              f"[{card}]")
+              f"{bound_ms / ms:.1%} of bound; plain einsum {plain_ms:.5f} ms; "
+              f"library call {t['library_ms']:.5f} ms [{card}]")
     print(json.dumps({"demo_timings": res}))
     return {"launches": {"eval_filter": launches[True],
                          "smplify": smplify_launches,
@@ -1303,6 +1356,36 @@ EXTRACT_CROPS, EXTRACT_BATCH = 1024, 256
 PRE_LBS_BATCH = 450
 
 
+@contextlib.contextmanager
+def tf32_scope():
+    """TF32 allowed for matmuls and cuDNN (what `device_scope` clears),
+    inference mode on."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def pseudo_thetas_tf32(vid, feats, setup: dict, batch: int) -> np.ndarray:
+    """`pseudo_thetas_for_features` with TF32 allowed: the control a
+    pseudo-theta bar must tell from strict fp32."""
+    from tepose_tpu_torch.preprocess import pseudo_theta
+
+    strict_scope, pseudo_theta.device_scope = (pseudo_theta.device_scope,
+                                               tf32_scope)
+    try:
+        return pseudo_theta.pseudo_thetas_for_features(
+            vid, feats, setup["vibe"], setup["smpl"], batch)
+    finally:
+        pseudo_theta.device_scope = strict_scope
+
+
 def phase11_preprocess(card: str) -> dict:
     import importlib
     import shutil
@@ -1405,26 +1488,7 @@ def phase11_preprocess(card: str) -> dict:
 
     # the control: the same pseudo-thetas with TF32 allowed (the flags that
     # `device_scope` clears); the theta bar must tell it from strict fp32
-    @contextlib.contextmanager
-    def tf32_scope():
-        saved = (torch.backends.cuda.matmul.allow_tf32,
-                 torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            with torch.inference_mode():
-                yield
-        finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = saved
-
-    strict_scope, pseudo_theta.device_scope = (pseudo_theta.device_scope,
-                                               tf32_scope)
-    try:
-        tf32 = pseudo_theta.pseudo_thetas_for_features(
-            vid, feats, setup["vibe"], setup["smpl"], spec["vibe_batch"])
-    finally:
-        pseudo_theta.device_scope = strict_scope
+    tf32 = pseudo_thetas_tf32(vid, feats, setup, spec["vibe_batch"])
     tf32_dev = float(np.abs(tf32 - golden["pseudo_theta"]).max())
     res["pseudo_theta_tf32_deviation"] = tf32_dev
     print(f"phase 11b: control with TF32 allowed: pseudo-thetas "
@@ -1514,24 +1578,17 @@ def phase11_preprocess(card: str) -> dict:
                  - lbs.lbs_skinning_reference(wT, A, v)).abs().max())
     if not err <= KERNEL_ATOL:
         raise RuntimeError(f"lbs kernel disagrees at B={n}: {err}")
-
-    def kernel():
-        lbs.lbs_skinning(wT, A, v)
-
-    def plain():
-        lbs.lbs_skinning_reference(wT, A, v)
-
-    times = {kernel: [], plain: []}
-    for fn in (plain, kernel, kernel, plain):
-        times[fn] += device_ms(fn, launches=50 if fn is kernel else 5)
-    ms, plain_ms = (float(np.median(times[f])) for f in (kernel, plain))
+    t = lbs_times(wT, A, v, plain_launches=5)
+    check_library(n, t)
+    ms, plain_ms = t["ms"], t["plain_ms"]
     bound_ms, bound_by = lbs_bound(n, LBS_V, wT.shape[0])
     res["lbs"] = {n: dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)}
+                          library_ms=t["library_ms"], bound_ms=bound_ms,
+                          bound_by=bound_by)}
     print(f"phase 11c: lbs B={n} V={LBS_V} max_abs_err={err:.3e}; device "
           f"{ms:.5f} ms per launch, bound {bound_ms:.5f} ms ({bound_by}), "
-          f"{bound_ms / ms:.1%} of bound; plain einsum {plain_ms:.5f} ms "
-          f"[{card}]")
+          f"{bound_ms / ms:.1%} of bound; plain einsum {plain_ms:.5f} ms; "
+          f"library call {t['library_ms']:.5f} ms [{card}]")
     print(json.dumps({"preprocess_timings": res}, default=str))
     return {"launches": res["launches"], "lbs": res["lbs"]}
 
@@ -2412,6 +2469,300 @@ def serve_train_timings(card: str) -> None:
     train_timings(loop, card)
 
 
+P15_DIR = os.path.join(REPO, "build", "chip_smoke_insta")
+P15_VIDLEN, P15_WINDOWS = 8, 3     # a segment of 3 windows at SEQLEN 6
+P15_SEGMENTS = 2                   # the first one warms up, the last is timed
+P15_RATE_MB = 256                  # features through H5Writer and open_h5
+
+
+def phase15_insta(card: str) -> dict:
+    """InstaVariety without h5py: h5py is put in sys.modules as None for
+    the whole phase. (a) `preprocess.insta.read_data` builds
+    insta_train_db.h5 on the card from the golden's fabricated tfrecords
+    (ResNet-50 from phase 11's seeds) through `data.h5.H5Writer`, read
+    back through `data.h5.open_h5`: host arrays equal to the JAX builder's
+    (tools/make_torch_insta_golden.py), features within 1e-4 of their
+    magnitude; (b) `preprocess.pseudo_theta.main(--file_name insta_train)`
+    on that file and on one holding the JAX builder's features (LBS
+    launches > 0), the latter's thetas within 1e-5 of the largest |theta|
+    of JAX's (a TF32 control must miss it); (c) `Insta`
+    items against the JAX `Insta`'s; (d) `build_train_loop`
+    without --synthetic, its 2D rows from that file, 3D and AMASS rows
+    through `db_overrides`: segments of 3 windows, finite losses, ms a
+    window; (e) `preprocess.mpii3d.read_test_data` on the committed MATLAB
+    v7.3-style annot_data.mat against JAX's reader; (f) H5Writer's and
+    open_h5's MB/s on the features."""
+    import shutil
+
+    import make_torch_insta_golden as ig
+    import make_torch_preprocess_golden as pg
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from tepose_tpu_torch.config import update_cfg
+    from tepose_tpu_torch.data import h5
+    from tepose_tpu_torch.data.datasets import Insta
+    from tepose_tpu_torch.data.db import read_joblib
+    from tepose_tpu_torch.data.synthetic import synthetic_3d_db
+    from tepose_tpu_torch.preprocess import insta, mpii3d, pseudo_theta
+    from tepose_tpu_torch.train.run import build_train_loop, close_loaders
+
+    t_phase = time.perf_counter()
+    saved_h5py = sys.modules.get("h5py")
+    sys.modules["h5py"] = None
+    try:
+        golden = ig.load_golden()
+        spec = golden["spec"]
+        if spec != json.loads(json.dumps(ig.SPEC)):
+            raise RuntimeError(f"the insta golden's spec {spec} is not "
+                               f"make_torch_insta_golden.SPEC")
+        mspec = dict(pg.FULL_SPEC, **{k: spec[k] for k in spec
+                                      if k in pg.FULL_SPEC})
+        setup = pg.port_setup(mspec, "cuda")
+        sums = pg.weight_checksums(setup)
+        if not np.allclose(sums, golden["weight_checksums"], rtol=1e-9,
+                           atol=0):
+            raise RuntimeError(f"weights rebuilt from the insta golden's "
+                               f"seeds differ ({sums} vs "
+                               f"{golden['weight_checksums']})")
+        shutil.rmtree(P15_DIR, ignore_errors=True)
+        folder = ig.fabricate_insta(os.path.join(P15_DIR, "raw"))
+        if ig.input_checksums(folder) != golden["input_sha256"]:
+            raise RuntimeError("the fabricated InstaVariety inputs differ "
+                               "from the golden's")
+        db_path = os.path.join(P15_DIR, "insta_train_db.h5")
+        feat_bar = ig.FEATURE_RTOL * float(
+            np.abs(golden["db/features"]).max())
+
+        # (a) the builder on the card, the file read back without h5py
+        t0 = time.perf_counter()
+        insta.read_data(folder, db_path, backbone=setup["backbone"],
+                        device="cuda", decode=ig.decode_png)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        with h5.open_h5(db_path) as f:
+            got = {k: np.asarray(f[k]) for k in f}
+        if sorted(got) != sorted(k[3:] for k in golden
+                                 if k.startswith("db/")):
+            raise RuntimeError(f"{db_path} holds {sorted(got)}")
+        for k in ig.HOST_KEYS:
+            want = golden[f"db/{k}"]
+            if got[k].dtype != want.dtype or not np.array_equal(got[k],
+                                                                 want):
+                raise RuntimeError(f"{k} of the card's InstaVariety DB "
+                                   f"differs from the JAX builder's")
+        feat_dev = float(np.abs(got["features"]
+                                - golden["db/features"]).max())
+        n_rows = len(got["vid_name"])
+        print(f"phase 15a: insta.read_data on cuda ({len(spec['videos'])} "
+              f"shards, videos of {spec['videos']} frames, ResNet-50 on "
+              f"224^2 crops) with h5py blocked -> {n_rows} rows of "
+              f"{sorted(got)} in {build_s:.3f} s; read back by data.h5: "
+              f"host arrays equal to the JAX builder's, features "
+              f"{feat_dev:.3e} from its (bar {feat_bar:.3e})")
+        if not feat_dev <= feat_bar:
+            raise RuntimeError(f"InstaVariety features miss the golden: "
+                               f"{feat_dev} > {feat_bar}")
+
+        # (b) the pseudo-theta CLI on the card's h5 DB, and on one holding
+        # the JAX builder's features, which alone can meet phase 11b's bar:
+        # the card's features part from JAX's by up to 1e-4 of their
+        # magnitude, and VIBE carries that into the thetas (VIBE and SMPL
+        # from the seeds: there are no converted assets)
+        same_dir = os.path.join(P15_DIR, "jax_features")
+        os.makedirs(same_dir)
+        with h5.H5Writer(os.path.join(same_dir, "insta_train_db.h5")) as w:
+            for k in ("vid_name", "features"):
+                w.append(k, golden[f"db/{k}"])
+        loaders = pseudo_theta.load_vibe, pseudo_theta.load_smpl
+        pseudo_theta.load_vibe = lambda path, device: setup["vibe"]
+        pseudo_theta.load_smpl = lambda device: setup["smpl"]
+        thetas, pse_s, pse_launches = {}, {}, {}
+        try:
+            for name, d in (("card", P15_DIR), ("jax", same_dir)):
+                lbs.LAUNCHES = 0
+                t0 = time.perf_counter()
+                pseudo_theta.main(["--file_name", "insta_train", "--db_dir",
+                                   d, "--vibe_batch_size",
+                                   str(spec["vibe_batch"]), "--gpu", "0"])
+                torch.cuda.synchronize()
+                pse_s[name] = time.perf_counter() - t0
+                pse_launches[name] = lbs.LAUNCHES
+                thetas[name] = read_joblib(os.path.join(
+                    d, "insta_train_pseudotheta.pt"))
+        finally:
+            pseudo_theta.load_vibe, pseudo_theta.load_smpl = loaders
+        theta_dev = {k: float(np.abs(v - golden["pseudo_theta"]).max())
+                     for k, v in thetas.items()}
+        theta_bar = ig.THETA_RTOL * float(
+            np.abs(golden["pseudo_theta"]).max())
+        tf32_dev = float(np.abs(pseudo_thetas_tf32(
+            golden["db/vid_name"], golden["db/features"], setup,
+            spec["vibe_batch"]) - golden["pseudo_theta"]).max())
+        _, counts = np.unique(got["vid_name"], return_counts=True)
+        chunks = int(sum(-(-c // spec["vibe_batch"]) for c in counts))
+        pse_ms = 1e3 * pse_s["card"] / chunks
+        print(f"phase 15b: python -m tepose_tpu_torch.preprocess.pseudo_theta"
+              f" --file_name insta_train on cuda -> {thetas['card'].shape} "
+              f"in {pse_s['card']:.3f} s ({pse_ms:.1f} ms a chunk of <= "
+              f"{spec['vibe_batch']} frames, {chunks} chunks, the h5 reads "
+              f"and the file write included; {pse_s['jax']:.3f} s on the "
+              f"JAX features' DB); lbs launches {pse_launches}; deviation "
+              f"from the JAX golden: on the JAX builder's features "
+              f"{theta_dev['jax']:.3e} (bar {theta_bar:.3e}, 1e-5 of the "
+              f"largest |theta|; the TF32 control {tf32_dev:.3e}), on the "
+              f"card's {theta_dev['card']:.3e} (their features differ by "
+              f"{feat_dev:.3e}) [{card}]")
+        if not tf32_dev > theta_bar:
+            raise RuntimeError(f"the theta bar {theta_bar:.3e} does not tell "
+                               f"TF32 ({tf32_dev:.3e}) from strict fp32")
+        if min(pse_launches.values()) <= 0 or \
+                not theta_dev["jax"] <= theta_bar or \
+                not np.isfinite(thetas["card"]).all():
+            raise RuntimeError(f"pseudo-theta on the InstaVariety DB: lbs "
+                               f"launches {pse_launches}, deviation "
+                               f"{theta_dev}")
+
+        # (c) Insta items from the card's file and its pseudo-theta sidecar:
+        # theta_pseu within the sidecar's own deviation from JAX's
+        ds = Insta("x", spec["item_seqlen"], spec["item_vidlen"],
+                   h5_path=db_path)
+        if not isinstance(ds.db["features"], h5.H5Dataset) or \
+                len(ds) != int(golden["n_items"]):
+            raise RuntimeError(f"Insta over {db_path}: {len(ds)} items, "
+                               f"features {type(ds.db['features'])}")
+        item_dev = 0.0
+        for i in spec["items"]:
+            item = ds[i]
+            for k in ig.item_keys():
+                want, have = golden[f"item{i}/{k}"], np.asarray(item[k])
+                if have.shape != want.shape:
+                    raise RuntimeError(f"Insta item {i} {k}: shape "
+                                       f"{have.shape} vs {want.shape}")
+                bar = {"features": feat_bar,
+                       "theta_pseu": theta_dev["card"]}.get(k, 0.0)
+                d = float(np.abs(have.astype(np.float64) - want).max())
+                if not d <= bar:
+                    raise RuntimeError(f"Insta item {i} {k} is {d} from "
+                                       f"the JAX Insta's (bar {bar})")
+                if k == "features":
+                    item_dev = max(item_dev, d)
+        print(f"phase 15c: Insta(seqlen {spec['item_seqlen']}, vidlen "
+              f"{spec['item_vidlen']}) over the card's file: {len(ds)} "
+              f"items; items {spec['items']} against the JAX Insta's: "
+              f"kp_2d, switch_id, vidlen_each equal, features "
+              f"{item_dev:.3e}, theta_pseu within the sidecar's "
+              f"{theta_dev['card']:.3e}")
+
+        # (d) the training loop on the file: 2D rows from Insta, 3D and
+        # AMASS rows through db_overrides, synthetic SMPL at full width
+        cfg = update_cfg(os.path.join(REPO, "configs",
+                                      "repr_wopw_3dpw_model.yaml"))
+        cfg.OUTPUT_DIR = os.path.join(P15_DIR, "train")
+        cfg.DATASET.VIDLEN = P15_VIDLEN
+        cfg.TRAIN.DATASETS_2D = ["Insta"]
+        cfg.TRAIN.DATASETS_3D = ["MPII3D"]
+        cfg.TRAIN.DATASET_EVAL = "ThreeDPW"
+        rs = np.random.RandomState(15)
+        db3, pse3 = synthetic_3d_db(rs, videos=tuple(
+            (P15_VIDLEN + 10, f"v{i}") for i in range(16)))
+        amass = {"vid_name": np.array(["m"] * 400),
+                 "theta": rs.randn(400, 82).astype(np.float32) * 0.2}
+        loop, _ = build_train_loop(
+            cfg, smoke_iters=P15_WINDOWS, smoke_verts=mspec["num_verts"],
+            device="cuda", db_dir=P15_DIR,
+            db_overrides={"mpii3d": (db3, pse3), "threedpw": (db3, pse3),
+                          "amass": (amass, None)})
+        try:
+            part = loop.train_2d.dataset.parts[0]
+            if not isinstance(part, Insta) or not isinstance(
+                    part.db["features"], h5.H5Dataset):
+                raise RuntimeError(f"the loop's 2D rows come from {part}")
+            metrics = loop.train_epoch(0, P15_SEGMENTS)
+        finally:
+            close_loaders(loop)
+        seg_s = list(loop.segment_seconds)
+        win_ms = 1e3 * seg_s[-1] / P15_WINDOWS
+        print(f"phase 15d: build_train_loop on cuda, not synthetic (batch "
+              f"{loop.hp.n_2d} Insta + {loop.hp.n_3d} 3D rows, VIDLEN "
+              f"{P15_VIDLEN}, 2x1024 GRUs, GCN 13/6, V={mspec['num_verts']}),"
+              f" {P15_SEGMENTS} segments of {P15_WINDOWS} windows: "
+              f"{win_ms:.2f} ms a window in the last (segments "
+              f"{[round(t, 4) for t in seg_s]} s, host clock); gen_loss "
+              f"{metrics['gen_loss']:.4f}, dis_loss "
+              f"{metrics['dis_loss']:.4f} [{card}]")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f"training on the InstaVariety DB gave "
+                               f"{metrics}")
+
+        # (e) the MPI-INF-3DHP test reader on the committed MATLAB file
+        root = ig.write_mpii3d_test_set(os.path.join(P15_DIR, "mpii3d"))
+        t0 = time.perf_counter()
+        mdb = mpii3d.read_test_data(root, backbone=setup["backbone"],
+                                    device="cuda")
+        m_s = time.perf_counter() - t0
+        mdb["img_name"] = np.array([os.path.relpath(p, root)
+                                    for p in mdb["img_name"]])
+        for k in ig.MPII3D_HOST_KEYS:
+            want = golden[f"mpii3d/{k}"]
+            if mdb[k].shape != want.shape or not np.array_equal(mdb[k],
+                                                                want):
+                raise RuntimeError(f"mpii3d test reader: {k} differs from "
+                                   f"the JAX reader's")
+        m_bar = ig.FEATURE_RTOL * float(
+            np.abs(golden["mpii3d/features"]).max())
+        m_dev = float(np.abs(mdb["features"]
+                             - golden["mpii3d/features"]).max())
+        print(f"phase 15e: mpii3d.read_test_data on the committed "
+              f"annot_data.mat (MATLAB v7.3 header, deflate chunks) -> "
+              f"{len(mdb['vid_name'])} rows in {m_s:.3f} s; host arrays "
+              f"equal to the JAX reader's, features {m_dev:.3e} (bar "
+              f"{m_bar:.3e})")
+        if not m_dev <= m_bar:
+            raise RuntimeError(f"mpii3d features miss the golden: {m_dev}")
+
+        # (f) the writer and the reader on the features alone
+        feats = got["features"]
+        reps = max(1, (P15_RATE_MB << 20) // feats.nbytes)
+        rate_path = os.path.join(P15_DIR, "rate.h5")
+        t0 = time.perf_counter()
+        with h5.H5Writer(rate_path) as w:
+            for _ in range(reps):
+                for s0 in range(0, len(feats), spec["vibe_batch"]):
+                    w.append("features", feats[s0:s0 + spec["vibe_batch"]])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with h5.open_h5(rate_path) as f:
+            d = f["features"]
+            total = 0
+            for s0 in range(0, len(d), spec["vibe_batch"]):
+                total += d[s0:s0 + spec["vibe_batch"]].nbytes
+        read_s = time.perf_counter() - t0
+        mb = reps * feats.nbytes / 2 ** 20
+        if total != reps * feats.nbytes:
+            raise RuntimeError("the rate file read back short")
+        os.remove(rate_path)
+    finally:
+        if saved_h5py is None:
+            sys.modules.pop("h5py", None)
+        else:
+            sys.modules["h5py"] = saved_h5py
+    res = {"card": card, "build_s": build_s, "rows": n_rows,
+           "feature_deviation": feat_dev, "theta_deviation": theta_dev,
+           "theta_bar": theta_bar, "theta_tf32_deviation": tf32_dev,
+           "pseudo_s": pse_s, "pseudo_ms_per_chunk": pse_ms,
+           "train_ms_per_window": win_ms, "segment_s": seg_s,
+           "mpii3d_s": m_s, "writer_mb_s": mb / write_s,
+           "reader_mb_s": mb / read_s,
+           "seconds": time.perf_counter() - t_phase,
+           "launches": {"pseudo_theta_insta": sum(pse_launches.values())}}
+    print(f"phase 15f: H5Writer {res['writer_mb_s']:.1f} MB/s (appends of "
+          f"{spec['vibe_batch']} rows of (N, 2048) float32, {mb:.1f} MB, "
+          f"close with fsync and rename), open_h5 {res['reader_mb_s']:.1f} "
+          f"MB/s (row slices of {spec['vibe_batch']}, page cache); phase 15 "
+          f"took {res['seconds']:.1f} s [{card}]")
+    print(json.dumps({"insta_timings": res}, default=str))
+    return res
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--dp-worker"]:
         if not torch.cuda.is_available():
@@ -2445,6 +2796,7 @@ def main() -> None:
     p12 = timed(12, phase12_parallel, card, sl, p6, p7)
     p13 = timed(13, phase13_bf16, card)
     p14 = timed(14, phase14_tuning, card)
+    p15 = timed(15, phase15_insta, card)
     print(f"seconds by phase: {json.dumps(spent)}")
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
@@ -2452,9 +2804,10 @@ def main() -> None:
                "live": p6["launches"], "train_validation": p8["launches"],
                **p9["launches"], "verify_release": p10["launches"],
                **p11["launches"], **p12["launches"], **p13["launches"],
-               **p14["launches"]}
+               **p14["launches"], **p15["launches"]}
     for B, r in {**p9["lbs"], **p11["lbs"]}.items():
         kern["device_ms"][B], kern["plain_ms"][B] = r["ms"], r["plain_ms"]
+        kern["library_ms"][B] = r["library_ms"]
         kern["bound"][B] = (r["bound_ms"], r["bound_by"])
         kern["max_abs_err"] = max(kern["max_abs_err"], r["max_abs_err"])
     print(json.dumps({"kernels": [{
@@ -2464,10 +2817,14 @@ def main() -> None:
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["device_ms"][big], "plain_ms": kern["plain_ms"][big],
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": kern["library_ms"][big],
+        "library_call": "torch.einsum('jv,bjik,bvk->bvi', wT, "
+                        "rel_tf[:, :, :3, :], homogeneous v_posed)",
         "shape": f"B={big} V={LBS_V} J=24",
         "device_ms_by_B": kern["device_ms"],
         "plain_ms_by_B": kern["plain_ms"],
+        "library_ms_by_B": kern["library_ms"],
         "bound_ms_by_B": {B: b[0] for B, b in kern["bound"].items()},
         "share_of_bound_by_B": {B: kern["bound"][B][0] / ms
                                 for B, ms in kern["device_ms"].items()},

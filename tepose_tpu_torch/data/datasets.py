@@ -14,8 +14,8 @@ tests/test_torch_train_loop.py and tests/test_torch_host.py. Items match the bat
            kp_2d (VIDLEN, 49, 3), switch_id (2, VIDLEN), vidlen_each ()
   AMASS item: theta (seqlen, 85)
 
-Numpy only; `h5py` is imported only to read Insta's HDF5 file, and the
-joblib DBs are read without joblib (`data.db.read_joblib`).
+Numpy only; Insta's HDF5 file is read without h5py (`data.h5.open_h5`),
+and the joblib DBs without joblib (`data.db.read_joblib`).
 """
 
 from __future__ import annotations
@@ -256,14 +256,13 @@ class Insta(Dataset2D):
         if db is None:
             import os.path as osp
 
-            import h5py
-
             from tepose_tpu_torch.config import TePose_DB_DIR
+            from tepose_tpu_torch.data.h5 import open_h5
             path = h5_path or osp.join(TePose_DB_DIR, "insta_train_db.h5")
-            f = h5py.File(path, "r")
+            f = open_h5(path)
             db = {
                 "vid_name": np.asarray(f["vid_name"]),
-                "features": f["features"],   # lazy h5 dataset
+                "features": f["features"],   # lazy: reads its rows
                 "joints2D": f["joints2D"],
                 "bbox": f["bbox"] if "bbox" in f else None,
             }

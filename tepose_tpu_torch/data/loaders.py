@@ -2,12 +2,14 @@
 
 A copy of `tepose_tpu/data/loaders.py` (`stack_items`, `BatchLoader`,
 `get_data_loaders`: train_2d / train_3d / motion_disc / valid), pinned
-equal to it by tests/test_torch_train_loop.py. Batches are assembled by a
-thread and staged through a prefetch queue; items are numpy.
+equal to it by tests/test_torch_train_loop.py; `get_data_loaders` also
+takes `db_dir`, where the JAX copy reads TEPOSE_DB_DIR only. Batches are
+assembled by a thread and staged through a prefetch queue; items are numpy.
 """
 
 from __future__ import annotations
 
+import os.path as osp
 import queue
 import threading
 from typing import Dict, Iterator, List, Optional, Sequence
@@ -138,7 +140,8 @@ class BatchLoader:
 
 
 def get_data_loaders(cfg, db_overrides: Optional[Dict] = None,
-                     num_shards: int = 1, shard_index: int = 0):
+                     num_shards: int = 1, shard_index: int = 0,
+                     db_dir: Optional[str] = None):
     """Build (train_2d, train_3d, motion_disc, valid) loaders from a config.
 
     ref: loaders.py:61-130 — batch split: 2D rows =
@@ -147,7 +150,8 @@ def get_data_loaders(cfg, db_overrides: Optional[Dict] = None,
     cfg.TRAIN.DATASET_EVAL whole videos.
 
     db_overrides maps dataset-name -> (db, psetheta) for tests / preloaded
-    data.
+    data. db_dir (default: TEPOSE_DB_DIR) is where the other datasets'
+    files are read, InstaVariety's `insta_train_db.h5` among them.
 
     num_shards/shard_index (multi-process runtime,
     parallel/distributed.py): the three TRAIN loaders each assemble only
@@ -168,13 +172,16 @@ def get_data_loaders(cfg, db_overrides: Optional[Dict] = None,
             kw["db"], kw["psetheta"] = over[name.lower()]
         if is_2d:
             if name == "Insta":
+                if db_dir:
+                    kw["h5_path"] = osp.join(db_dir, "insta_train_db.h5")
                 return D.Insta(load_opt, seqlen, vidlen, **kw)
+            kw["db_dir"] = db_dir
             if name == "PoseTrack":
                 return D.PoseTrack(load_opt, seqlen, vidlen, **kw)
             raise ValueError(f"unknown 2D dataset {name}")
         cls = {"ThreeDPW": D.ThreeDPW, "MPII3D": D.MPII3D,
                "Human36M": D.Human36M}[name]
-        return cls(load_opt, "train", seqlen, vidlen, **kw)
+        return cls(load_opt, "train", seqlen, vidlen, db_dir=db_dir, **kw)
 
     class Concat:
         def __init__(self, parts):
@@ -214,7 +221,7 @@ def get_data_loaders(cfg, db_overrides: Optional[Dict] = None,
     train_3d = BatchLoader(ds3, n_3d, seed=cfg.SEED_VALUE + 2
                            if cfg.SEED_VALUE >= 0 else 2, **shard_kw)
 
-    amass_kw = {}
+    amass_kw = {"db_dir": db_dir}
     if "amass" in over:
         amass_kw["db"] = over["amass"][0]
     disc = BatchLoader(D.AMASS(seqlen, **amass_kw), cfg.TRAIN.BATCH_SIZE,
@@ -222,7 +229,7 @@ def get_data_loaders(cfg, db_overrides: Optional[Dict] = None,
                        **shard_kw)
 
     eval_name = cfg.TRAIN.DATASET_EVAL
-    eval_kw = {}
+    eval_kw = {"db_dir": db_dir}
     if eval_name.lower() in over:
         eval_kw["db"], eval_kw["psetheta"] = over[eval_name.lower()]
     valid_ds = {"ThreeDPW": D.ThreeDPW, "MPII3D": D.MPII3D,

@@ -3,11 +3,12 @@
 Port of `tools/preprocess/insta.py` (ref: lib/data_utils/insta_utils.py:
 102-393): reads the InstaVariety tfrecord shards (per-frame jpeg images +
 25-joint 'insta' keypoints), derives keypoint bboxes, extracts ResNet
-features on the device, and appends everything to a single HDF5 (the
-dataset is too large for one in-memory dict). The TFRecord / SequenceExample
-codec below, decoder and encoder, is a byte-for-byte copy of the tool's
-(tests/test_torch_preprocess.py holds it equal); h5py and the default frame
-decoder's cv2 are imported by `read_data`.
+features on the device, and appends everything to a single HDF5 through
+`data.h5.H5Writer`, without h5py (the dataset is too large for one
+in-memory dict; the writer holds one batch). The TFRecord /
+SequenceExample codec below, decoder and encoder, is a byte-for-byte copy
+of the tool's (tests/test_torch_preprocess.py holds it equal); the default
+frame decoder's cv2 is imported by `decode_rgb`.
 
   python -m tepose_tpu_torch.preprocess.insta --dir data/insta_variety
          [--out PATH] [--no-verify-crc] [--gpu 0|cpu]
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from tepose_tpu_torch.config import TePose_DB_DIR, gpu_device
+from tepose_tpu_torch.data.h5 import H5Writer
 from tepose_tpu_torch.data.preprocess import FeatureExtractor
 from tepose_tpu_torch.ops.filters import kp_to_bbox_param
 from tepose_tpu_torch.preprocess.common import (
@@ -332,8 +334,6 @@ def read_data(folder: str, out_path: str = None, backbone=None,
     `backbone` defaults to the converted SPIN ResNet-50 on `device`,
     `decode(bytes)` to OpenCV (RGB uint8); `mesh` splits each feature
     batch over its devices."""
-    import h5py
-
     decode = decode or decode_rgb
     extractor = FeatureExtractor(backbone if backbone is not None
                                  else load_backbone(device), mesh=mesh)
@@ -342,20 +342,8 @@ def read_data(folder: str, out_path: str = None, backbone=None,
     if not records:
         raise FileNotFoundError(f"no tfrecords under {folder}/train")
 
-    with h5py.File(out_path, "w") as h5:
-        dsets = {}
-
-        def append(key, arr):
-            arr = np.asarray(arr)
-            if key not in dsets:
-                dsets[key] = h5.create_dataset(
-                    key, data=arr, maxshape=(None,) + arr.shape[1:],
-                    chunks=True)
-            else:
-                d = dsets[key]
-                d.resize(d.shape[0] + arr.shape[0], axis=0)
-                d[-arr.shape[0]:] = arr
-
+    with H5Writer(out_path) as h5:
+        append = h5.append
         for ri, rec_path in enumerate(records):
             for vi, raw in enumerate(iter_tfrecord(rec_path, verify_crc)):
                 frames, kps = _parse_example(raw)

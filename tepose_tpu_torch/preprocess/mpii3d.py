@@ -5,8 +5,9 @@ Port of `tools/preprocess/mpii3d.py` (ref: lib/data_utils/mpii3d_utils.py:
 28-joint annotations converted 'mpii3d'->'spin' (root at spin joint 39),
 videos split into new segments at frames with out-of-view joints. Test:
 TS1-TS6 annot_data.mat (17-joint), 'mpii3d_test' ordering kept in
-`valid_i`. scipy.io and h5py are imported by the readers that need them;
-features are extracted on the device.
+`valid_i`. scipy.io is imported by the train reader; the test reader's
+MATLAB v7.3 files (HDF5 behind a 512-byte user block) are read by
+`data.h5.open_h5`, without h5py; features are extracted on the device.
 
   python -m tepose_tpu_torch.preprocess.mpii3d --dir data/mpi_inf_3dhp
          [--set train] [--gpu 0|cpu]
@@ -23,6 +24,7 @@ import torch
 
 from tepose_tpu_torch.config import gpu_device
 from tepose_tpu_torch.data.db import save_db
+from tepose_tpu_torch.data.h5 import open_h5
 from tepose_tpu_torch.data.kp_utils import convert_kps
 from tepose_tpu_torch.data.preprocess import FeatureExtractor
 from tepose_tpu_torch.preprocess.common import (
@@ -115,8 +117,6 @@ def read_train_data(dataset_path: str, backbone=None, mesh=None, *,
 def read_test_data(dataset_path: str, backbone=None, mesh=None, *,
                    device: torch.device | str = "cuda"):
     """The test (val) DB, as `read_train_data`."""
-    import h5py
-
     extractor = FeatureExtractor(backbone if backbone is not None
                                  else load_backbone(device), mesh=mesh)
     dataset = {k: [] for k in
@@ -129,7 +129,7 @@ def read_test_data(dataset_path: str, backbone=None, mesh=None, *,
         annot_file = osp.join(seq_path, "annot_data.mat")
         if not osp.isfile(annot_file):
             continue
-        with h5py.File(annot_file, "r") as m:
+        with open_h5(annot_file) as m:
             annot2 = np.array(m["annot2"])       # (T, 1, 17, 2)
             annot3 = np.array(m["univ_annot3"])  # (T, 1, 17, 3)
             valid = np.array(m["valid_frame"]).reshape(-1)

@@ -25,6 +25,7 @@ import torch
 from tepose_tpu_torch.config import BASE_DATA_DIR, TePose_DB_DIR, gpu_device
 from tepose_tpu_torch.data.chunking import group_video_indices
 from tepose_tpu_torch.data.db import read_joblib, write_db
+from tepose_tpu_torch.data.h5 import open_h5
 from tepose_tpu_torch.models.smpl import SmplModel
 from tepose_tpu_torch.models.tepose import Vibe, VibeConfig
 from tepose_tpu_torch.preprocess.common import (
@@ -94,10 +95,8 @@ def main(argv=None):
         if osp.isfile(db_file):
             db = read_joblib(db_file)
         elif args.file_name == "insta_train":
-            import h5py
-
             db = stack.enter_context(
-                h5py.File(osp.join(d, args.file_name + "_db.h5"), "r"))
+                open_h5(osp.join(d, args.file_name + "_db.h5")))
         else:
             raise FileNotFoundError(db_file)
 

@@ -56,10 +56,16 @@ def build_train_loop(cfg, *, synthetic: bool = False,
                      smoke_verts: Optional[int] = None,
                      device: torch.device | str = "cuda",
                      cfg_file: Optional[str] = None,
-                     precision: Optional[str] = None):
+                     precision: Optional[str] = None,
+                     db_dir: Optional[str] = None,
+                     db_overrides: Optional[dict] = None):
     """Models, data and optimizers on `device`; returns (TrainLoop,
     outer batches per epoch). `precision` (the `--precision` flag's value)
-    wins over `cfg.TRAIN.PRECISION`."""
+    wins over `cfg.TRAIN.PRECISION`. Without `synthetic`, the DBs are read
+    from `db_dir` (default TEPOSE_DB_DIR) except those `db_overrides`
+    gives (`data.loaders.get_data_loaders`). Without SMPL assets in
+    TEPOSE_BASE_DATA_DIR, `synthetic` or `smoke_verts` train on the
+    synthetic SMPL model (`smoke_verts` vertices)."""
     from tepose_tpu_torch.config import BASE_DATA_DIR
     from tepose_tpu_torch.data.loaders import get_data_loaders
     from tepose_tpu_torch.data.synthetic import synthetic_loaders
@@ -92,7 +98,8 @@ def build_train_loop(cfg, *, synthetic: bool = False,
     if osp.isfile(smpl_npz):
         smpl = load_smpl_assets(smpl_npz, device)
         faces = load_smpl_faces(smpl_npz)
-    elif synthetic:
+    elif synthetic or smoke_verts:
+        # no SMPL assets: the synthetic model (smoke runs, also on real DBs)
         smpl = (synthetic_smpl_model(0, smoke_verts, device=device)
                 if smoke_verts else synthetic_smpl_model(0, device=device))
         # triangle soup so the DEBUG mesh-overlay path renders something
@@ -133,7 +140,8 @@ def build_train_loop(cfg, *, synthetic: bool = False,
     shard_kw = dict(num_shards=distributed.process_count(),
                     shard_index=distributed.process_index())
     loaders = (synthetic_loaders(cfg, **shard_kw) if synthetic
-               else get_data_loaders(cfg, **shard_kw))
+               else get_data_loaders(cfg, db_overrides, db_dir=db_dir,
+                                     **shard_kw))
     gen_opt = make_optimizer(cfg.TRAIN.GEN_OPTIM, gen, cfg.TRAIN.GEN_LR,
                              cfg.TRAIN.GEN_WD, cfg.TRAIN.GEN_MOMENTUM)
     d = cfg.TRAIN.MOT_DISCR

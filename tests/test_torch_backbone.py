@@ -30,6 +30,16 @@ ATOL = 5e-4
 jax_features = jax.jit(JB.resnet50_features)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _hmr_state_dict(seed=0):
     """An HMR-style torch ResNet-50 state_dict (numpy values) with random
     BN statistics, so that folding is exercised; conv weights N(0, 1/fan_in)

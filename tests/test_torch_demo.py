@@ -53,6 +53,16 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 CROP = 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = JaxTePoseConfig(seqlen=6, n_layers=1, hidden_size=16)

@@ -50,6 +50,16 @@ V = 300
 S = 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.fixture(scope="module")
 def rollout_setup():
     jcfg = JaxTePoseConfig(seqlen=S, n_layers=2, hidden_size=32)
@@ -341,7 +351,7 @@ def test_never_imports_jax():
         "          'convert_smpl', 'verify_release', 'utils.flops',\n"
         "          'utils.profiling', 'preprocess.threedpw',\n"
         "          'preprocess.pseudo_theta', 'preprocess.insta',\n"
-        "          'data.preprocess', 'parallel.distributed',\n"
+        "          'data.preprocess', 'data.h5', 'parallel.distributed',\n"
         "          'parallel.mesh', 'parallel.dp', 'parallel.mp_dryrun',\n"
         "          'tune_eval_batching', 'precision_sweep'):\n"
         "    assert 'tepose_tpu_torch.' + m in sys.modules, m\n")

@@ -54,6 +54,16 @@ V, T = 128, 5
 BARS = golden_writer.SMPLIFY_BARS
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.fixture(scope="module")
 def fit():
     """A perturbed fit and noisy targets at V = 128, T = 5."""

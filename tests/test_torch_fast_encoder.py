@@ -34,6 +34,16 @@ jax_scan_jit = jax.jit(jax_scan, static_argnums=(4, 5),
                        static_argnames=("outputs", "precompute_projections"))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _encoder(n_layers, hidden):
     enc = jax.device_get(temporal_encoder_init(jax.random.PRNGKey(0),
                                                n_layers, hidden))

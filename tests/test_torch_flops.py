@@ -19,6 +19,16 @@ from tepose_tpu_torch.models.temporal import TemporalEncoder
 from tepose_tpu_torch.utils import flops as F
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _within(analytic, counted, rel=0.06):
     assert counted * (1 - rel) <= analytic <= counted * (1 + rel), \
         f"analytic {analytic:.4e} vs counted {counted:.4e}"

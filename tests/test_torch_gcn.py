@@ -28,6 +28,16 @@ SCALES = dict(num_gcn_scales=3, num_g3d_scales=2)
 TOL = dict(rtol=1e-4, atol=1e-6)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 def test_graph_copy_matches():
     A = TGR.smpl_graph_binary()
     np.testing.assert_array_equal(A, JGR.smpl_graph_binary())

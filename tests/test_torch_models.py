@@ -33,6 +33,16 @@ jax_vibe = jax.jit(vibe_apply, static_argnums=(3,))
 jax_regressor = jax.jit(JR.regressor_apply)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _gen():
     return torch.Generator().manual_seed(0)
 

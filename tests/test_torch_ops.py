@@ -22,6 +22,16 @@ from tepose_tpu_torch.ops.procrustes import batch_similarity_transform
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _check(jax_fn, torch_fn, *xs, atol=ATOL):
     want = np.asarray(jax_fn(*map(jnp.asarray, xs)))
     got = torch_fn(*map(torch.from_numpy, xs)).numpy()

@@ -42,6 +42,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -213,6 +214,7 @@ def _free_port() -> int:
 def _run_ranks(world: int, jobs, tmp_path) -> dict:
     out = str(tmp_path / f"world{world}.npz")
     port = _free_port()
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), str(r), str(world),
          str(port), out, *jobs], cwd=REPO, env=ENV, stdout=subprocess.PIPE,
@@ -226,6 +228,7 @@ def _run_ranks(world: int, jobs, tmp_path) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    print(f"{world} ranks, jobs {jobs}: {time.perf_counter() - t0:.1f} s")
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} of {world}:\n{log[-4000:]}"
     with np.load(out) as z:
@@ -273,12 +276,21 @@ def one_process_dropout():
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    """Rank 0's results of the 2-rank jobs: the segment at rate 1.0
-    (dropout off) and at 0.9 (dropout on), at 0.9 with bf16 compute and
-    with the shared fake discriminator pass, and the BatchNorm case."""
-    return _Npz(_run_ranks(2, ["seg:1.0", "seg:0.9", "seg:0.9:bf16",
-                               "seg:0.9:share", "bn"],
-                           tmp_path_factory.mktemp("mp")))
+    """Rank 0's results of a 2-rank job (`_worker`'s jobs: the segment at
+    rate 1.0 (dropout off) and at 0.9 (dropout on), at 0.9 with bf16
+    compute and with the shared fake discriminator pass, and the
+    BatchNorm case): `two_ranks(job)` launches the two ranks for that job
+    alone, with their own time limit, the first time a test asks for it.
+    One launch for all five jobs ran past its 120 s under the suite's
+    load."""
+    runs = {}
+
+    def get(job: str) -> _Npz:
+        if job not in runs:
+            runs[job] = _Npz(_run_ranks(2, [job],
+                                        tmp_path_factory.mktemp("mp")))
+        return runs[job]
+    return get
 
 
 def _jax_sharded_segment() -> dict:
@@ -333,7 +345,7 @@ def _jax_sharded_segment() -> dict:
 
 def test_two_ranks_match_jax_sharded_segment(two_ranks):
     """update_theta_rate 1.0, dropout off, uneven valid and GAN rows."""
-    got = _unflat(two_ranks, "seg:1.0")
+    got = _unflat(two_ranks("seg:1.0"), "seg:1.0")
     want = _jax_sharded_segment()
     assert set(got["losses"]) <= set(want["losses"])
     _assert_segment_bars(got, want, bn_bar=1e-3, moments=False)
@@ -351,13 +363,13 @@ def test_ranks_match_one_process_with_dropout(world, two_ranks,
     """update_theta_rate 0.9 and dropout on: every rank draws the global
     shape and keeps its rows, so 2 and 3 ranks equal one process."""
     want = one_process_dropout
-    ranks = (two_ranks if world == 2
+    ranks = (two_ranks("seg:0.9") if world == 2
              else _Npz(_run_ranks(3, ["seg:0.9"], tmp_path)))
     got = _unflat(ranks, "seg:0.9")
     _assert_segment_bars(got, want)
     # the draws moved the result past the loss bar: rate 1.0 without
     # dropout differs
-    other = _unflat(two_ranks, "seg:1.0")
+    other = _unflat(two_ranks("seg:1.0"), "seg:1.0")
     assert abs(other["losses"]["gen_loss"] - got["losses"]["gen_loss"]) \
         > 1e-5 * abs(got["losses"]["gen_loss"])
 
@@ -375,7 +387,7 @@ def test_ranks_compose_with_bf16_and_shared_disc(variant, two_ranks):
     within 5 % (measured: gen 0.99986 / 0.016, disc 0.990 / 0.141, losses
     2.5e-3)."""
     want = _segment(_setup(0.9, variant), dropout=True, sharded=False)
-    got = _unflat(two_ranks, f"seg:0.9:{variant}")
+    got = _unflat(two_ranks(f"seg:0.9:{variant}"), f"seg:0.9:{variant}")
     for group in ("gen", "disc", "disc_state"):
         assert all(np.asarray(v).dtype == np.float32
                    for v in got[group].values()), group
@@ -400,8 +412,9 @@ def test_masked_batchnorm_global_statistics(two_ranks):
     outputs, input gradients, the summed weight and bias gradients and the
     running statistics."""
     want = _bn_case(0, 1)
+    got = two_ranks("bn")
     for k, v in want.items():
-        np.testing.assert_allclose(two_ranks[f"bn/{k}"], v, rtol=1e-5,
+        np.testing.assert_allclose(got[f"bn/{k}"], v, rtol=1e-5,
                                    atol=1e-6, err_msg=k)
 
 

@@ -15,11 +15,13 @@ import inspect
 import os
 import os.path as osp
 import random
+import shutil
 import sys
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 import tepose_tpu.data.preprocess as jax_preprocess
 from tepose_tpu.data import occlusion as jax_occlusion
@@ -27,6 +29,7 @@ from tepose_tpu.data.db import load_db as jax_load_db
 from tepose_tpu.models.smpl import synthetic_smpl_model as jax_smpl
 from tepose_tpu.models.tepose import VibeConfig as JaxVibeConfig
 from tepose_tpu_torch.data import db as port_db
+from tepose_tpu_torch.data.h5 import open_h5
 from tepose_tpu_torch.data import occlusion as port_occlusion
 from tepose_tpu_torch.data import preprocess as port_preprocess
 from tepose_tpu_torch.preprocess import (
@@ -43,6 +46,7 @@ sys.path[:0] = [TESTS, osp.join(REPO, "tools"),
 import amass as J_amass  # noqa: E402
 import h36m as J_h36m  # noqa: E402
 import insta as J_insta  # noqa: E402
+import make_torch_insta_golden as ig  # noqa: E402
 import make_torch_preprocess_golden as pg  # noqa: E402
 import mpii3d as J_mpii3d  # noqa: E402
 import pennaction as J_penn  # noqa: E402
@@ -60,6 +64,16 @@ SMALL_SPEC = dict(pg.FULL_SPEC, num_verts=V, vibe_n_layers=1,
                   vibe_hidden_size=32, frames=16, height=96, width=128,
                   pseudo_lengths=[13, 10, 4], vibe_batch=10)
 PORT_BUILDERS = (P_3dpw, P_h36m, P_mpii3d, P_posetrack, P_penn, P_insta)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")
@@ -287,15 +301,27 @@ def test_pseudo_thetas_match_jax(models):
     np.testing.assert_array_equal(got[10:13], tail[7:])
 
 
+@pytest.mark.parametrize("db", ["joblib", "insta_h5"])
 def test_pseudo_theta_cli_writes_what_jax_reads(models, tmp_path,
-                                                monkeypatch):
-    """`main` reads a DB written by `save_db` and writes the pseudo-thetas
-    with `write_db`, on the CPU (--gpu cpu), with joblib blocked; joblib
-    reads the file back."""
+                                                monkeypatch, db):
+    """`main` reads a DB written by `save_db` (or, as `--file_name
+    insta_train`, an InstaVariety h5 written by h5py with the builder's
+    settings) and writes the pseudo-thetas with `write_db`, on the CPU
+    (--gpu cpu), with joblib and h5py blocked; joblib reads the file
+    back."""
     joblib = pytest.importorskip("joblib")
     vid, feats = pg.pseudo_inputs(SMALL_SPEC)
     d = str(tmp_path)
-    port_db.save_db({"vid_name": vid, "features": feats}, "x_test", d)
+    name = "x_test" if db == "joblib" else "insta_train"
+    if db == "joblib":
+        port_db.save_db({"vid_name": vid, "features": feats}, name, d)
+    else:
+        h5py = pytest.importorskip("h5py")
+        with h5py.File(osp.join(d, "insta_train_db.h5"), "w") as f:
+            for k, v in (("vid_name", vid.astype(bytes)),
+                         ("features", feats)):
+                f.create_dataset(k, data=v, maxshape=(None,) + v.shape[1:],
+                                 chunks=True)
     setup = models["port"]
     monkeypatch.setattr(P_pseudo, "load_vibe",
                         lambda path, device: setup["vibe"])
@@ -303,9 +329,10 @@ def test_pseudo_theta_cli_writes_what_jax_reads(models, tmp_path,
                         lambda device: setup["smpl"])
     with monkeypatch.context() as m:
         m.setitem(sys.modules, "joblib", None)
-        P_pseudo.main(["--file_name", "x_test", "--db_dir", d,
+        m.setitem(sys.modules, "h5py", None)
+        P_pseudo.main(["--file_name", name, "--db_dir", d,
                        "--vibe_batch_size", "10", "--gpu", "cpu"])
-    got = joblib.load(osp.join(d, "x_test_pseudotheta.pt"))
+    got = joblib.load(osp.join(d, f"{name}_pseudotheta.pt"))
     want = P_pseudo.pseudo_thetas_for_features(vid, feats, setup["vibe"],
                                                setup["smpl"], 10)
     np.testing.assert_array_equal(got, want)
@@ -341,10 +368,14 @@ def test_h36m_matches_jax(small_crops, tmp_path):
         _same_db(got, want, device_keys=())
 
 
-def test_mpii3d_matches_jax(small_crops, tmp_path):
+@pytest.mark.parametrize("annot", ["h5py", "matlab"])
+def test_mpii3d_matches_jax(small_crops, tmp_path, monkeypatch, annot):
     """Train: annot.mat cells, one video split into two segments by an
     out-of-view frame, one too short to keep; test: annot_data.mat (HDF5)
-    with `valid_i`."""
+    with `valid_i`, written here by h5py or the committed MATLAB v7.3-style
+    file (`tools/make_torch_insta_golden.py::MPII3D_ANNOT`: a 512-byte
+    MATLAB header, deflate-chunked); the port reads it with h5py
+    blocked."""
     import h5py
     import scipy.io as sio
 
@@ -363,24 +394,31 @@ def test_mpii3d_matches_jax(small_crops, tmp_path):
             _jpg_frames(str(seq / f"video_{vid_i}"), T, (100, 120, 3), rs)
     sio.savemat(str(seq / "annot.mat"), {"annot2": annot2, "annot3": annot3})
     ts = tmp_path / "mpii3d" / "mpi_inf_3dhp_test_set" / "TS1"
-    T = 9
+    T = 9 if annot == "h5py" else ig.SPEC["mpii3d_frames"]
     _jpg_frames(str(ts / "imageSequence"), T, (100, 120, 3), rs,
                 "img_{:06d}.jpg")
     os.rename(ts / "imageSequence" / "img_000000.jpg",
               ts / "imageSequence" / f"img_{T:06d}.jpg")
     a2 = np.stack([60 + rs.randn(T, 1, 17) * 15,
                    50 + rs.randn(T, 1, 17) * 15], -1)
-    with h5py.File(ts / "annot_data.mat", "w") as m:
-        m["annot2"] = a2
-        m["univ_annot3"] = rs.randn(T, 1, 17, 3) * 300
-        m["valid_frame"] = (rs.rand(T) > 0.3).astype(np.float64)
+    if annot == "h5py":
+        with h5py.File(ts / "annot_data.mat", "w") as m:
+            m["annot2"] = a2
+            m["univ_annot3"] = rs.randn(T, 1, 17, 3) * 300
+            m["valid_frame"] = (rs.rand(T) > 0.3).astype(np.float64)
+    else:
+        shutil.copyfile(ig.MPII3D_ANNOT, ts / "annot_data.mat")
     root = str(tmp_path / "mpii3d")
-    for jax_fn, port_fn, n in (
-            (J_mpii3d.read_train_data, P_mpii3d.read_train_data, 19),
-            (J_mpii3d.read_test_data, P_mpii3d.read_test_data, T)):
+    readers = [(J_mpii3d.read_test_data, P_mpii3d.read_test_data, T)]
+    if annot == "h5py":     # the train reader does not read annot_data
+        readers.insert(0, (J_mpii3d.read_train_data,
+                           P_mpii3d.read_train_data, 19))
+    for jax_fn, port_fn, n in readers:
         want = jax_fn(root, backbone=small_crops["jax_backbone"])
-        got = port_fn(root, backbone=small_crops["port"]["backbone"],
-                      device="cpu")
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "h5py", None)
+            got = port_fn(root, backbone=small_crops["port"]["backbone"],
+                          device="cpu")
         assert len(want["vid_name"]) == n
         _same_db(got, want, device_keys=())
 
@@ -431,9 +469,12 @@ def test_amass_matches_jax(tmp_path):
     _same_db(got, want)
 
 
-def test_insta_matches_jax(small_crops, tmp_path):
-    """Two shards: a kept video and one with too few frames; the HDF5
-    datasets equal."""
+@pytest.mark.parametrize("reader", ["h5py", "port"])
+def test_insta_matches_jax(small_crops, tmp_path, monkeypatch, reader):
+    """Two shards: a kept video and one with too few frames; the port's
+    builder writes its HDF5 with h5py blocked (`data.h5.H5Writer`); its
+    datasets, read by h5py or by `data.h5.open_h5` (h5py blocked), equal
+    those of the JAX builder's file."""
     import cv2
     import h5py
 
@@ -452,13 +493,22 @@ def test_insta_matches_jax(small_crops, tmp_path):
     paths = [str(tmp_path / f"{n}.h5") for n in ("jax", "port")]
     J_insta.read_data(str(tmp_path / "insta"), paths[0],
                       backbone=small_crops["jax_backbone"])
-    P_insta.read_data(str(tmp_path / "insta"), paths[1],
-                      backbone=small_crops["port"]["backbone"], device="cpu")
-    with h5py.File(paths[0], "r") as w, h5py.File(paths[1], "r") as g:
-        assert sorted(w) == sorted(g)
-        assert w["vid_name"].shape == (10,)
-        _same_db({k: g[k][:] for k in g}, {k: w[k][:] for k in w},
-                 device_keys=())
+    with h5py.File(paths[0], "r") as w:
+        want = {k: w[k][:] for k in w}
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "h5py", None)
+        P_insta.read_data(str(tmp_path / "insta"), paths[1],
+                          backbone=small_crops["port"]["backbone"],
+                          device="cpu")
+        if reader == "port":
+            with open_h5(paths[1]) as g:
+                got = {k: g[k][:] for k in g}
+    if reader == "h5py":
+        with h5py.File(paths[1], "r") as g:
+            got = {k: g[k][:] for k in g}
+    assert want["vid_name"].shape == (10,)
+    assert sorted(os.listdir(tmp_path)) == ["insta", "jax.h5", "port.h5"]
+    _same_db(got, want, device_keys=())
 
 
 # ------------------------------------------------------------- the golden

@@ -53,6 +53,16 @@ LIVE_TOL = dict(rtol=2e-4, atol=2e-5)
 CROPS_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.fixture(scope="module")
 def m():
     """JAX params and the port's modules holding them, plus inputs."""

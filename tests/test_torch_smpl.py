@@ -16,6 +16,16 @@ FIELDS = ("v_template", "shapedirs", "posedirs", "j_regressor",
           "lbs_weights", "j_regressor_extra")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _assert_same_model(jax_model, port_model, exact=True):
     for f in FIELDS:
         want = np.asarray(getattr(jax_model, f))

@@ -47,6 +47,16 @@ SMALL_SPEC = dict(golden_writer.FULL_SPEC, n_layers=1, hidden_size=16,
                   num_g3d_scales=2, disc_update_steps=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

@@ -63,6 +63,16 @@ import make_torch_train_golden as golden_writer  # noqa: E402
 S = 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on this host's
+    cores, and these tests' small ops gain nothing from more."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _models(seed=0):
     gen = TePose(TePoseConfig(S, 1, 16, fast_encoder=True),
                  generator=torch.Generator().manual_seed(seed), device="cpu")
@@ -214,7 +224,58 @@ def _eq_items(a, b):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_dataset_copies_match(rng):
+def _insta_h5(path, rng, clips=((14, 0), (9, 1), (30, 2), (6, 3))):
+    """An InstaVariety DB as the builder writes it through h5py (one
+    append a video into resizable chunked datasets: 25 insta joints,
+    bboxes, float32 features), and its pseudo-theta sidecar."""
+    h5py = pytest.importorskip("h5py")
+    dsets = {}
+    with h5py.File(path, "w") as f:
+        for n, v in clips:
+            rows = {"vid_name": np.array([f"insta_0000_{v:04d}".encode()] * n),
+                    "frame_id": np.arange(n),
+                    "joints2D": np.concatenate(
+                        [rng.uniform(0, 224, (n, 25, 2)),
+                         rng.rand(n, 25, 1) > 0.2], -1).astype(np.float32),
+                    "bbox": np.concatenate(
+                        [rng.uniform(80, 140, (n, 2)),
+                         rng.uniform(60, 160, (n, 1)).repeat(2, 1)],
+                        -1).astype(np.float32),
+                    "features": rng.randn(n, 2048).astype(np.float32)}
+            for k, a in rows.items():
+                if k not in dsets:
+                    dsets[k] = f.create_dataset(
+                        k, data=a, maxshape=(None,) + a.shape[1:],
+                        chunks=True)
+                else:
+                    d = dsets[k]
+                    d.resize(d.shape[0] + n, axis=0)
+                    d[-n:] = a
+    total = sum(n for n, _ in clips)
+    TDB.write_db(rng.randn(total, 85).astype(np.float32) * 0.2,
+                 path[:-len("_db.h5")] + "_pseudotheta.pt")
+
+
+@pytest.mark.parametrize("source", ["db", "insta_h5"])
+def test_dataset_copies_match(rng, source, tmp_path, monkeypatch):
+    """Every dataset copy against its JAX original on the same DB; with
+    `insta_h5`, `Insta` reading an h5py-written InstaVariety file and its
+    pseudo-theta sidecar with h5py and joblib blocked, against the JAX
+    `Insta` reading them through h5py and joblib."""
+    if source == "insta_h5":
+        path = str(tmp_path / "insta_train_db.h5")
+        _insta_h5(path, rng)
+        b = JD.Insta("x", S, 20, h5_path=path)
+        with monkeypatch.context() as m:
+            for name in ("h5py", "joblib"):
+                m.setitem(sys.modules, name, None)
+            a = TD.Insta("x", S, 20, h5_path=path)
+            assert type(a.db["features"]).__module__ == \
+                "tepose_tpu_torch.data.h5"
+            assert len(a) == len(b) == 3
+            for i in range(len(a)):
+                _eq_items(a[i], b[i])
+        return
     db3, pse3 = synthetic_3d_db(rng)
     db3["valid_i"] = (rng.rand(len(db3["vid_name"]), 1) > 0.2).astype(
         np.float32)
@@ -297,6 +358,51 @@ def test_loaders_and_synthetic_dbs_match(rng):
     loader.close()
     items = [{"a": np.full(2, i)} for i in range(3)]
     _eq_items(TLD.stack_items(items), JLD.stack_items(items))
+
+
+def test_train_loop_reads_insta_h5_from_db_dir(rng, tmp_path, monkeypatch):
+    """`build_train_loop` without --synthetic (`db_dir=`, `db_overrides=`,
+    the synthetic SMPL through `smoke_verts`, no SMPL assets) reads
+    InstaVariety's h5 DB and its pseudo-theta sidecar from `db_dir` with
+    h5py and joblib blocked, the other datasets through `db_overrides`: a
+    2D batch's rows are `Insta` items over the file's lazy features, and
+    a segment of 2 windows gives finite losses."""
+    from tepose_tpu_torch.data.h5 import H5Dataset
+
+    _insta_h5(str(tmp_path / "insta_train_db.h5"), rng)
+    cfg = _tiny_cfg(TCFG.update_cfg(os.path.join(
+        REPO, "configs", "repr_wopw_3dpw_model.yaml")), tmp_path / "out")
+    cfg.MODEL.TGRU.NUM_LAYERS = 1
+    cfg.MODEL.TGRU.HIDDEN_SIZE = 16
+    cfg.TRAIN.MOT_DISCR.GCN.num_gcn_scales = 2
+    cfg.TRAIN.MOT_DISCR.GCN.num_g3d_scales = 2
+    cfg.TRAIN.PRETRAINED_REGRESSOR = ""
+    cfg.TRAIN.DATASETS_2D = ["Insta"]
+    db3, pse3 = TSYN.synthetic_3d_db(np.random.RandomState(4))
+    amass = {"vid_name": np.array(["m"] * 60),
+             "theta": rng.randn(60, 82).astype(np.float32)}
+    over = {"mpii3d": (db3, pse3), "human36m": (db3, pse3),
+            "threedpw": (db3, pse3), "amass": (amass, None)}
+    with monkeypatch.context() as m:
+        for name in ("h5py", "joblib"):
+            m.setitem(sys.modules, name, None)
+        loop, _ = TRUN.build_train_loop(
+            cfg, smoke_iters=2, smoke_verts=48, device="cpu",
+            db_dir=str(tmp_path), db_overrides=over)
+        try:
+            ds = loop.train_2d.dataset.parts[0]
+            assert isinstance(ds, TD.Insta)
+            assert isinstance(ds.db["features"], H5Dataset)
+            batch = next(iter(loop.train_2d))
+            metrics = loop.train_epoch(0, 1)
+        finally:
+            TRUN.close_loaders(loop)
+    items = [ds[i]["features"] for i in range(len(ds))]
+    assert batch["features"].shape == (3, 2, 12, 2048)
+    for row in batch["features"]:
+        assert any(np.array_equal(row, it) for it in items)
+    assert loop.smpl.num_verts == 48
+    assert all(np.isfinite(v) for v in metrics.values())
 
 
 def test_logging_and_nan_guard_copies_match(tmp_path):
