@@ -165,7 +165,7 @@ Phases, each of which raises on failure (no phase's error is caught):
      session launch twice what one device launches (live: twice phase
      6's); (d) eval ms per window with the mesh and without (B = 32,
      T = 128, in turns) and each one's kernels a window and idle share
-     (`kernel_timing.profile_device`), training ms per window plain,
+     (`utils.profiling.profile_device`), training ms per window plain,
      at world 1 over NCCL and at world 2 over gloo, and the all-reduce's
      share of a traced segment (`utils.profiling.trace`); (e) `python -m
      tepose_tpu_torch.train --synthetic --devices 1 --smoke-iters 2`
@@ -184,7 +184,7 @@ Phases, each of which raises on failure (no phase's error is caught):
      metrics), then its checkpoint resumed bit-equal and still bf16; (c)
      float32 and bf16 at batch 32 and 128 and the shared fake
      discriminator pass, timed in turns: ms a window, samples x windows/s,
-     kernels a window and idle share (`kernel_timing.profile_device`),
+     kernels a window and idle share (`utils.profiling.profile_device`),
      peak memory; (d) `run_eval(--synthetic, 3dpw)` at each `--precision`
      tier (float32, tensorfloat32, bfloat16) with equal LBS launches, and
      each tier's rollout on phase 3's batch and on one 520-frame video
@@ -222,6 +222,19 @@ Phases, each of which raises on failure (no phase's error is caught):
      the committed MATLAB v7.3-style annot_data.mat; (f) the writer's and
      the reader's MB/s on the features. Outputs under
      build/chip_smoke_insta/.
+ 16. the benchmark commands' functions at full width, with fewer reps and
+     windows than their CLIs: `tepose_tpu_torch.bench.measure` (the plain
+     and fast scans at B = 192 streams over 125 frames, 120 windows, under
+     the float32 and tensorfloat32 tiers; the four engines and the
+     device-only engine call on 8 x 120 uint8 224 x 224 crops; training
+     segments of 4, 2 and 2 windows at batch 32 float32, 32 bf16 and 128
+     bf16; one timed call each) and `bench.summarize`: every figure finite
+     and none null, the LBS launches of the scans and the engine each > 0
+     and summing to the count zeroed just before and read just after, and
+     the fast scan's thetas within 5e-4 of the plain loop's (the bar of
+     tests/test_torch_fast_encoder.py for the same pair); then
+     `bench_notes.stage_breakdown` (its scans launch the kernel) and
+     `bench_notes.render_benchmark`, finite.
 
 Phases 2, 9d and 11c also time the library call that computes the LBS
 kernel's function, one `torch.einsum("jv,bjik,bvk->bvi")` over the top
@@ -256,9 +269,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_ATOL = 1e-5       # fp32, as tests/test_lbs_pallas.py holds the kernel
 # phase 2's shapes: the main path's launch sizes at V = 6890 (eval's 3 on
 # phase 3's synthetic videos and EVAL_BATCHING's MAX_B 32 and 128, the mesh's
-# 192, engine 8, live 1; phase 14 checks that eval's are here) and the large
-# batch; ragged vertex counts; views at storage offset 1 for one and for four
-# vertices per thread
+# and the bench's scans' 192, engine 8, live 1; phase 14 checks that eval's
+# are here) and the large batch; ragged vertex counts; views at storage
+# offset 1 for one and for four vertices per thread
 LBS_V, LBS_BATCHES = 6890, (1, 3, 8, 32, 128, 192, 256)
 LBS_RAGGED = ((700, 3), (301, 3))
 LBS_OFFSET = ((LBS_V, 3), (700, 8), (LBS_V, 32))
@@ -761,7 +774,7 @@ def train_timings(loop, card: str, validation_launches=None) -> tuple:
     """Phase 8c on a built training loop: TRAIN_TIMED_SEGMENTS segments'
     host seconds, one profiled segment, one validation batch. Returns the
     timings and a two-window training step (phase 10's trace)."""
-    from kernel_timing import profile_device
+    from tepose_tpu_torch.utils.profiling import profile_device
     import tepose_tpu_torch.ops.lbs_skinning as lbs
     from tepose_tpu_torch.train.run import close_loaders
     from tepose_tpu_torch.train.trainer import train_segment
@@ -917,7 +930,8 @@ def mesh_pixels(rendered, frame, results, t: int) -> int:
 
 def phase9_demo(card: str) -> dict:
     import make_torch_demo_golden as dg
-    from kernel_timing import lbs_bound, lbs_inputs, profile_device
+    from kernel_timing import lbs_bound, lbs_inputs
+    from tepose_tpu_torch.utils.profiling import profile_device
     import tepose_tpu_torch.models.smpl as smpl_mod
     import tepose_tpu_torch.ops.lbs_skinning as lbs
     from tepose_tpu_torch import demo, native
@@ -1391,7 +1405,8 @@ def phase11_preprocess(card: str) -> dict:
     import shutil
 
     import make_torch_preprocess_golden as pg
-    from kernel_timing import device_ms, lbs_bound, lbs_inputs, profile_device
+    from kernel_timing import device_ms, lbs_bound, lbs_inputs
+    from tepose_tpu_torch.utils.profiling import profile_device
     import tepose_tpu_torch.ops.lbs_skinning as lbs
     from tepose_tpu_torch.data.db import (
         load_db, load_pseudotheta, save_db, write_db)
@@ -1769,7 +1784,7 @@ def phase12_parallel(card: str, p3: dict, p6: dict, p7: dict) -> dict:
     import shutil
     import socket
 
-    from kernel_timing import profile_device
+    from tepose_tpu_torch.utils.profiling import profile_device
     import tepose_tpu_torch.ops.lbs_skinning as lbs
     from tepose_tpu_torch.config import parse_args
     from tepose_tpu_torch.data.preprocess import FeatureExtractor
@@ -2103,7 +2118,7 @@ def phase13_bf16(card: str) -> dict:
     import bf16_gate
     import make_torch_train_golden as tg
     import tepose_tpu_torch.ops.lbs_skinning as lbs
-    from kernel_timing import profile_device
+    from tepose_tpu_torch.utils.profiling import profile_device
     from tepose_tpu_torch.config import parse_args, update_cfg
     from tepose_tpu_torch.evaluate import (
         build_models, make_eval_batch, run_eval, synthetic_eval_data)
@@ -2444,6 +2459,61 @@ def phase14_tuning(card: str) -> dict:
     lap("c")
     print(f"phase 14: seconds by part {json.dumps(res['seconds'])}")
     return res
+
+
+# phase 16's cut of the bench's CLI shapes: the scans over 125 frames (120
+# windows) instead of 485, training segments of fewer windows, one timed
+# call of each variant
+BENCH_FRAMES = 125
+BENCH_TRAIN_ITERS = {"f32": 4, "bf16": 2, "fast": 2}
+BENCH_SCAN_ATOL = 5e-4   # tests/test_torch_fast_encoder.py's fast-vs-plain bar
+
+
+def phase16_bench(card: str) -> dict:
+    import tepose_tpu_torch.bench as bench
+    import tepose_tpu_torch.bench_notes as notes
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+
+    full = bench.FULL_SHAPES
+    shapes = dataclasses.replace(full, frames=BENCH_FRAMES, train_tiers=tuple(
+        t._replace(iters=BENCH_TRAIN_ITERS[t.name]) for t in full.train_tiers))
+    reps = bench.Reps(scan=1, e2e=1, e2e_device=2, train=1, burn=1,
+                      train_burn=0)
+    lbs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    raw = bench.measure(bench.FULL_MODEL, shapes, reps, "cuda:0")
+    torch.cuda.synchronize()
+    launches = lbs.LAUNCHES
+    line = bench.summarize(bench.FULL_MODEL, shapes, raw)
+    bench.check_finite(line, allow_none=False)
+    print(f"phase 16: bench.measure in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: {json.dumps(line, allow_nan=False)}")
+    by_path = line["extra"]["lbs_launches"]
+    if min(by_path.values()) <= 0 or sum(by_path.values()) != launches:
+        raise RuntimeError(f"bench paths' lbs launches {by_path} against "
+                           f"{launches} counted around the run")
+    fast, plain = (raw["scans"]["theta"][k] for k in ("fast", "plain"))
+    dev = float((fast - plain).abs().max())
+    print(f"phase 16: the bench's scans at B={shapes.streams}, "
+          f"{raw['scans']['windows']} windows: theta max |fast - plain| "
+          f"{dev:.3e} (bar {BENCH_SCAN_ATOL}); lbs launches {by_path}")
+    if not dev <= BENCH_SCAN_ATOL:
+        raise RuntimeError(f"the bench's fast scan misses the plain loop: "
+                           f"{dev}")
+
+    lbs.LAUNCHES = 0
+    stage = notes.stage_breakdown(device="cuda:0", reps=2)
+    torch.cuda.synchronize()
+    stage_launches = lbs.LAUNCHES
+    render = notes.render_benchmark(reps=2)
+    bench.check_finite([stage, render], allow_none=False)
+    print(f"phase 16: bench_notes stage and render [{card}]: "
+          + json.dumps({"stage_breakdown": stage,
+                        "render_benchmark": render}, allow_nan=False))
+    if not stage_launches >= stage["lbs_launches"] > 0:
+        raise RuntimeError(f"bench_notes' stage scans launched the lbs "
+                           f"kernel {stage_launches} times")
+    return {"launches": {**by_path, "bench_notes_stage": stage_launches}}
 
 
 def serve_train_timings(card: str) -> None:
@@ -2797,6 +2867,7 @@ def main() -> None:
     p13 = timed(13, phase13_bf16, card)
     p14 = timed(14, phase14_tuning, card)
     p15 = timed(15, phase15_insta, card)
+    p16 = timed(16, phase16_bench, card)
     print(f"seconds by phase: {json.dumps(spent)}")
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
@@ -2804,7 +2875,7 @@ def main() -> None:
                "live": p6["launches"], "train_validation": p8["launches"],
                **p9["launches"], "verify_release": p10["launches"],
                **p11["launches"], **p12["launches"], **p13["launches"],
-               **p14["launches"], **p15["launches"]}
+               **p14["launches"], **p15["launches"], **p16["launches"]}
     for B, r in {**p9["lbs"], **p11["lbs"]}.items():
         kern["device_ms"][B], kern["plain_ms"][B] = r["ms"], r["plain_ms"]
         kern["library_ms"][B] = r["library_ms"]

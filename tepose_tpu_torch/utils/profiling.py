@@ -1,8 +1,10 @@
-"""Device traces, per-stage wall timing for the serving pipeline, and the
-training loop's non-finite-loss guard.
+"""Device traces, a profiled call's device busy time, per-stage wall timing
+for the serving pipeline, and the training loop's non-finite-loss guard.
 
 `trace` is the port of `tepose_tpu/utils/profiling.py::trace` onto
 `torch.profiler` (`--profile DIR` of the demo and training CLIs).
+`profile_device` sums one call's device time and kernels (`bench_notes`,
+`chip_smoke.py`, `tools/lbs_kernel_bench.py`).
 `StageTimer` and `NaNGuard` are copies of their namesakes there (host-only
 classes; importing the original would import JAX), pinned equal to them by
 tests/test_torch_serve.py and tests/test_torch_train_loop.py.
@@ -54,6 +56,55 @@ def trace(logdir: str, device: torch.device | str = "cpu"
         raise RuntimeError(f"torch.profiler recorded no CUDA activity on "
                            f"{device} ({out.path}): device tracing (CUPTI) "
                            "is unavailable")
+
+
+def profile_device(fn) -> dict | None:
+    """One call of `fn` under `torch.profiler` (CPU and CUDA activities).
+
+    Returns its span on the profiler's clock (first to last event), the
+    device's busy time (the union of device-event intervals, user
+    annotations left out), the idle share 1 - busy / span, the number of
+    kernels (device events that are not copies or fills), the five kernels
+    that took most device time and the eight host ops with the most self
+    CPU time; None if the trace holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    if not dev:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events))
+    kernels = [e for e in dev if not e.name.lower().startswith(
+        ("memcpy", "memset"))]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / span, "kernels": len(kernels),
+            "top_kernels_ms": [(n[:80], t / 1e3) for n, t in top],
+            "top_host_ops_ms": [(a.key[:60], a.self_cpu_time_total / 1e3,
+                                 a.count) for a in host[:8]]}
 
 
 class StageTimer:

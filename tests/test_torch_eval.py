@@ -353,7 +353,8 @@ def test_never_imports_jax():
         "          'preprocess.pseudo_theta', 'preprocess.insta',\n"
         "          'data.preprocess', 'data.h5', 'parallel.distributed',\n"
         "          'parallel.mesh', 'parallel.dp', 'parallel.mp_dryrun',\n"
-        "          'tune_eval_batching', 'precision_sweep'):\n"
+        "          'tune_eval_batching', 'precision_sweep', 'bench',\n"
+        "          'bench_notes'):\n"
         "    assert 'tepose_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
