@@ -235,6 +235,18 @@ Phases, each of which raises on failure (no phase's error is caught):
      tests/test_torch_fast_encoder.py for the same pair); then
      `bench_notes.stage_breakdown` (its scans launch the kernel) and
      `bench_notes.render_benchmark`, finite.
+ 17. VIBE over image crops at full width: `vibe_demo_forward` (the
+     bootstrap VIBE 2 x 1024, seqlen 16, ResNet-50, synthetic SMPL with
+     6890 vertices, seeded weights, strict float32) on 2 videos x 16
+     seeded uint8 224 x 224 crops through `normalize_crop`, with the LBS
+     count zeroed just before and read just after (one launch at
+     B T = 32): every output against the same call on the CPU (plain
+     kernels, same weights and crops) at phases 5-6's bars; the LBS kernel
+     on the inputs that call gave it against its plain version within
+     1e-5; `TemporalAttention(2048, 16)`, tanh and relu, on (32, 16, 2048)
+     against the CPU within 1e-5 with rows summing to 1 within 1e-5; then
+     frames/s, the median of 5 calls after a warm-up, and in turns with
+     them the ResNet-50 features of the 32 crops alone.
 
 Phases 2, 9d and 11c also time the library call that computes the LBS
 kernel's function, one `torch.einsum("jv,bjik,bvk->bvi")` over the top
@@ -2516,6 +2528,138 @@ def phase16_bench(card: str) -> dict:
     return {"launches": {**by_path, "bench_notes_stage": stage_launches}}
 
 
+# phase 17's shapes: the demo's VIBE window over B videos of T crops
+VDEMO_B, VDEMO_T, VDEMO_CALLS = 2, 16, 5
+ATTENTION_SHAPE = (32, 16, 2048)
+
+
+def vibe_demo_setup(device) -> dict:
+    """Phase 17's models and crops on `device`, the same from the seeds on
+    any device."""
+    from tepose_tpu_torch.models.backbone import normalize_crop, resnet50_init
+    from tepose_tpu_torch.models.smpl import synthetic_smpl_model
+    from tepose_tpu_torch.models.tepose import Vibe, VibeConfig
+
+    crops = np.random.RandomState(17).randint(
+        0, 256, (VDEMO_B * VDEMO_T, 3, 224, 224)).astype(np.uint8)
+    images = normalize_crop(torch.from_numpy(crops).to(device))
+    return {
+        "vibe": Vibe(VibeConfig(), device=device,
+                     generator=torch.Generator().manual_seed(1)).eval(),
+        "backbone": resnet50_init(torch.Generator().manual_seed(2),
+                                  device).eval(),
+        "smpl": synthetic_smpl_model(0, LBS_V, device=device),
+        "images": images.reshape(VDEMO_B, VDEMO_T, 3, 224, 224),
+    }
+
+
+def phase17_vibe_demo(card: str) -> dict:
+    import tepose_tpu_torch.models.smpl as smpl_mod
+    import tepose_tpu_torch.ops.lbs_skinning as lbs
+    from make_torch_serve_golden import KP2D_RTOL, METRE_ATOL, THETA_ATOL
+    from tepose_tpu_torch.models.backbone import resnet50_features
+    from tepose_tpu_torch.models.temporal import TemporalAttention
+    from tepose_tpu_torch.models.tepose import vibe_demo_forward
+
+    setups = {d: vibe_demo_setup(d) for d in ("cuda", "cpu")}
+
+    def run(device):
+        s = setups[device]
+        with torch.no_grad():
+            return vibe_demo_forward(s["vibe"], s["backbone"], s["smpl"],
+                                     s["images"])
+
+    run("cuda")   # warm-up: cuDNN's plans
+    torch.cuda.synchronize()
+    lbs.LAUNCHES = 0
+    got = run("cuda")
+    torch.cuda.synchronize()
+    launches = lbs.LAUNCHES
+    if launches != 1:
+        raise RuntimeError(f"vibe_demo_forward launched the lbs kernel "
+                           f"{launches} times, not once")
+    want = run("cpu")
+    dev = {}
+    for k, w in want.items():
+        g = got[k].cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"vibe demo {k}: shape {tuple(g.shape)} "
+                               f"against {tuple(w.shape)}, or non-finite")
+        bar = {"theta": THETA_ATOL, "rotmat": THETA_ATOL,
+               "kp_2d": KP2D_RTOL * float(w.abs().max())}.get(k, METRE_ATOL)
+        dev[k] = (float((g - w).abs().max()), bar)
+    print(f"phase 17: vibe_demo_forward on cuda ({VDEMO_B} x {VDEMO_T} "
+          f"224^2 crops, VIBE 2x1024, V={LBS_V}), lbs launches {launches}; "
+          f"deviation from the CPU / bar: " + ", ".join(
+              f"{k} {d:.3e} / {bar:.1e}" for k, (d, bar) in dev.items()))
+    bad = {k: v for k, v in dev.items() if not v[0] <= v[1]}
+    if bad:
+        raise RuntimeError(f"vibe_demo_forward on cuda misses the CPU: {bad}")
+
+    seen = []
+
+    def recorded(*args):
+        seen.append(args)
+        return lbs.lbs_skinning(*args)
+
+    smpl_mod.lbs_skinning = recorded
+    try:
+        run("cuda")
+    finally:
+        smpl_mod.lbs_skinning = lbs.lbs_skinning
+    (wT, A, v), = seen
+    err = float((lbs.lbs_skinning(wT, A, v)
+                 - lbs.lbs_skinning_reference(wT, A, v)).abs().max())
+    print(f"phase 17: lbs on the call's inputs B={A.shape[0]} V={v.shape[1]} "
+          f"max_abs_err={err:.3e}")
+    if not err <= KERNEL_ATOL:
+        raise RuntimeError(f"lbs kernel disagrees on the vibe demo's "
+                           f"inputs: {err}")
+
+    x = np.random.RandomState(18).randn(*ATTENTION_SHAPE).astype(np.float32)
+    for nl in ("tanh", "relu"):
+        scores = []
+        for device in ("cuda", "cpu"):
+            att = TemporalAttention(
+                ATTENTION_SHAPE[2], ATTENTION_SHAPE[1], nl, device=device,
+                generator=torch.Generator().manual_seed(3))
+            with torch.no_grad():
+                scores.append(att(torch.from_numpy(x).to(device)).cpu())
+        d = float((scores[0] - scores[1]).abs().max())
+        rows = float((scores[0].sum(1) - 1.0).abs().max())
+        print(f"phase 17: TemporalAttention({ATTENTION_SHAPE[2]}, "
+              f"{ATTENTION_SHAPE[1]}, {nl}) on {ATTENTION_SHAPE}: max |cuda "
+              f"- cpu| {d:.3e}, max |row sum - 1| {rows:.3e} (bars 1e-5)")
+        if not (d <= 1e-5 and rows <= 1e-5):
+            raise RuntimeError(f"TemporalAttention {nl} on cuda: {d}, {rows}")
+
+    s = setups["cuda"]
+    crops = s["images"].reshape((-1,) + s["images"].shape[2:])
+
+    def backbone():
+        with torch.no_grad():
+            resnet50_features(s["backbone"], crops)
+
+    secs = {"call": [], "backbone": []}
+    for _ in range(VDEMO_CALLS):
+        for name, fn in (("call", lambda: run("cuda")),
+                         ("backbone", backbone)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+    ms = {k: 1e3 * float(np.median(v)) for k, v in secs.items()}
+    fps = VDEMO_B * VDEMO_T / ms["call"] * 1e3
+    print(f"phase 17: vibe_demo_forward {fps:.1f} frames/s (median of "
+          f"{[round(t, 5) for t in secs['call']]} s per call of "
+          f"{VDEMO_B * VDEMO_T} frames, host clock to a synchronise), of "
+          f"which ResNet-50 alone {ms['backbone']:.3f} ms (median of "
+          f"{[round(t, 5) for t in secs['backbone']]} s, in turns); lbs "
+          f"launches {launches} a call [{card}]")
+    return {"launches": {"vibe_demo": launches}, "frames_per_s": fps,
+            "ms": ms}
+
+
 def serve_train_timings(card: str) -> None:
     """`python3 chip_smoke.py --timings`: phases 1, 5 and 7, and phase 8c
     on a freshly built training loop after one untimed segment; nothing
@@ -2868,6 +3012,7 @@ def main() -> None:
     p14 = timed(14, phase14_tuning, card)
     p15 = timed(15, phase15_insta, card)
     p16 = timed(16, phase16_bench, card)
+    p17 = timed(17, phase17_vibe_demo, card)
     print(f"seconds by phase: {json.dumps(spent)}")
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
@@ -2875,7 +3020,8 @@ def main() -> None:
                "live": p6["launches"], "train_validation": p8["launches"],
                **p9["launches"], "verify_release": p10["launches"],
                **p11["launches"], **p12["launches"], **p13["launches"],
-               **p14["launches"], **p15["launches"], **p16["launches"]}
+               **p14["launches"], **p15["launches"], **p16["launches"],
+               **p17["launches"]}
     for B, r in {**p9["lbs"], **p11["lbs"]}.items():
         kern["device_ms"][B], kern["plain_ms"][B] = r["ms"], r["plain_ms"]
         kern["library_ms"][B] = r["library_ms"]

@@ -1,9 +1,10 @@
 """Iterative-error-feedback SMPL regressor + weak-perspective projection.
 
 Port of `tepose_tpu/models/regressor.py` (`regressor_init`,
-`ief_iterations`, `projection`, `regressor_apply`): eval mode with the J14
-path, and train mode with dropout after fc1 and fc2 of each IEF step and the
-vertex-free joints of `smpl_joints_reduced` (`compute_verts=False`).
+`ief_iterations`, `perspective_projection`, `projection`,
+`regressor_apply`): eval mode with the J14 path, and train mode with
+dropout after fc1 and fc2 of each IEF step and the vertex-free joints of
+`smpl_joints_reduced` (`compute_verts=False`).
 """
 
 from __future__ import annotations
@@ -26,19 +27,26 @@ N_ITER = 3
 DROPOUT = 0.5
 
 
+def perspective_projection(points: torch.Tensor, translation: torch.Tensor,
+                           focal_length: float = 5000.0) -> torch.Tensor:
+    """Pinhole projection with an identity rotation and zero centre:
+    focal * (p + t).xy / (p + t).z. points (B, N, 3), translation (B, 3)
+    -> (B, N, 2)."""
+    p = points + translation[:, None, :]
+    return focal_length * (p[..., :2] / p[..., 2:3])
+
+
 def projection(pred_joints: torch.Tensor, pred_camera: torch.Tensor,
                img_size: float = 224.0) -> torch.Tensor:
     """Weak-perspective camera (s, tx, ty) -> normalised 2D keypoints.
 
-    Depth is 2 * 5000 / (224 s + 1e-9); the pinhole projection has an
-    identity rotation, zero centre and focal length 5000.
+    Depth is 2 * 5000 / (224 s + 1e-9), projected by
+    `perspective_projection` at focal length 5000.
     """
     cam_t = torch.stack(
         [pred_camera[:, 1], pred_camera[:, 2],
          2.0 * 5000.0 / (img_size * pred_camera[:, 0] + 1e-9)], dim=-1)
-    p = pred_joints + cam_t[:, None, :]
-    kp2d = 5000.0 * (p[..., :2] / p[..., 2:3])
-    return kp2d / (img_size / 2.0)
+    return perspective_projection(pred_joints, cam_t) / (img_size / 2.0)
 
 
 class Regressor(nn.Module):

@@ -1,8 +1,10 @@
-"""Temporal encoders: TePose dual-GRU and VIBE residual-GRU, eval mode.
+"""Temporal encoders: TePose dual-GRU and VIBE residual-GRU, eval mode,
+and the soft temporal attention scorer.
 
 Port of `tepose_tpu/models/temporal.py` (`temporal_encoder_apply`,
-`vibe_encoder_apply`). Inputs are batch-first (B, T, F) at the module
-boundary, as in JAX; the GRUs run sequence-first inside.
+`vibe_encoder_apply`, `temporal_attention_apply`). Inputs are batch-first
+(B, T, F) at the module boundary, as in JAX; the GRUs run sequence-first
+inside.
 """
 
 from __future__ import annotations
@@ -13,6 +15,37 @@ from torch import nn
 from tepose_tpu_torch.models.layers import make_gru, make_linear
 
 INPUT_DIM = 2048 + 85  # features + theta feedback
+
+
+class TemporalAttention(nn.Module):
+    """Soft attention over a window's T frames: `fc` (attention_size ->
+    256) on each frame, then the flattened (B, 256 T) through three linears
+    (-> 256 -> 256 -> T), each followed by `non_linearity` ("tanh", else
+    ReLU), the last one too, as in JAX; softmax over T.
+
+    TePose defines it and never calls it in its forward, and the checkpoint
+    converters drop its weights (`encoder.attention.*`), as the JAX
+    package's do; it is here for API parity with JAX."""
+
+    def __init__(self, attention_size: int, seq_len: int,
+                 non_linearity: str = "tanh", *,
+                 generator: torch.Generator, device: torch.device | str):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.act = torch.tanh if non_linearity == "tanh" else torch.relu
+        self.fc = make_linear(attention_size, 256, **kw)
+        self.attention = nn.ModuleList([
+            make_linear(256 * seq_len, 256, **kw),
+            make_linear(256, 256, **kw),
+            make_linear(256, seq_len, **kw)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, T, attention_size) -> scores (B, T), each row summing
+        to 1."""
+        h = self.fc(x).reshape(x.shape[0], -1)
+        for lin in self.attention:
+            h = self.act(lin(h))
+        return torch.softmax(h, dim=-1)
 
 
 class TemporalEncoder(nn.Module):

@@ -1,12 +1,12 @@
 """TePose and the bootstrap VIBE as nn.Modules.
 
 Port of `tepose_tpu/models/tepose.py` (`TePoseConfig`, `tepose_apply` in
-eval and train mode, `VibeConfig`, `vibe_apply`). The modules'
-`state_dict` keys are the JAX param-tree paths joined with "."
-(`encoder.gru_fwd.weight_ih_l0`,
-`regressor.init_pose`, ...), so `weights.state_dict_from_jax_tree` output
-loads with `strict=True`. `TePoseConfig.fast_encoder` routes the forward
-through the lane-batched `models.fast_encoder`, which computes the same.
+eval and train mode, `VibeConfig`, `vibe_apply`, `vibe_demo_apply`). The
+modules' `state_dict` keys are the JAX param-tree paths joined with "."
+(`encoder.gru_fwd.weight_ih_l0`, `regressor.init_pose`, ...), so
+`weights.state_dict_from_jax_tree` output loads with `strict=True`.
+`TePoseConfig.fast_encoder` routes the forward through the lane-batched
+`models.fast_encoder`, which computes the same.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from tepose_tpu_torch.models.backbone import ResNet50, resnet50_features
 from tepose_tpu_torch.models.fast_encoder import (
     FEAT_DIM, fast_encoder_window, pack_fast_encoder, project_frame_features,
     stack_fast_encoder)
@@ -127,3 +128,18 @@ class Vibe(nn.Module):
         feature = self.encoder(x).reshape(B * T, -1)
         out = self.regressor(feature, smpl, j_regressor=j_regressor)
         return {k: v.reshape((B, T) + v.shape[1:]) for k, v in out.items()}
+
+
+def vibe_demo_forward(vibe: Vibe, backbone: ResNet50, smpl: SmplModel,
+                      images: torch.Tensor, *,
+                      j_regressor: Optional[torch.Tensor] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """VIBE over image crops (VIBE_Demo.forward): ImageNet-NORMALISED crops
+    (B, T, 3, H, W) -> ResNet-50 features of the B T crops -> `vibe` ->
+    per-frame predictions (B, T, ...). Normalise with
+    `backbone.normalize_crop` first: raw [0, 255] pixels would give garbage
+    features without an error. SMPL skins the B T frames in one launch of
+    the LBS kernel on CUDA."""
+    B, T = images.shape[:2]
+    feats = resnet50_features(backbone, images.flatten(0, 1))
+    return vibe(feats.reshape(B, T, -1), smpl, j_regressor=j_regressor)

@@ -23,10 +23,10 @@ A window's rows are [2D rows, 3D rows]: process p owns a block of each, so
 its generator rows are two blocks; its AMASS rows are the p-th block of the
 real-motion batch, which shards on axis 1 (`RowShard.amass_rows`).
 
-JAX's `MeshTreePlacer` placed carry and batch pytrees on a mesh for the
-flat-packed segment and its AOT compile, which served the remote TPU link;
-the port keeps the modules resident on each process's device and has no
-counterpart.
+JAX's `MeshTreePlacer` placed carry and batch pytrees on a mesh: the carry
+replicated, the batch rows sharded on axis 0 and the AMASS rows on axis 1.
+Here the modules stay resident on each process's device
+(`replicate_from_primary`), and `RowShard` holds that split of the rows.
 """
 
 from __future__ import annotations

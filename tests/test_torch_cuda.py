@@ -1,7 +1,7 @@
 """CUDA-only tests of the port: the LBS skinning kernel against its plain
 version, its input checks and launch shapes, and the eval rollout, the
-serving engine, the live session, a training window and trainer validation
-on the card against the CPU.
+serving engine, VIBE over crops, the live session, a training window and
+trainer validation on the card against the CPU.
 
 They skip where no CUDA device is visible. This file imports no JAX, so on a
 GPU host without JAX it runs without the suite's conftest:
@@ -175,6 +175,40 @@ def test_engine_on_cuda_matches_cpu(cuda):
         golden = dict(cpu, spec=SERVE_SPEC)
         for k, (d, bar) in sg.golden_deviation(got, golden).items():
             assert d <= bar, (path, k, d, bar)
+
+
+def test_vibe_demo_forward_on_cuda_matches_cpu(cuda):
+    """VIBE over normalised crops at tests/test_torch_parity_extras.py's
+    size (64 vertices, 1 x 4 crops of 64 x 64, VIBE 1 x 16) on the card,
+    skinned in one kernel launch, against the CPU at chip_smoke.py's
+    serving bars (kp_2d relative to its magnitude)."""
+    import make_torch_serve_golden as sg
+    from tepose_tpu_torch.models.backbone import resnet50_init
+    from tepose_tpu_torch.models.tepose import (
+        Vibe, VibeConfig, vibe_demo_forward)
+
+    images = np.random.RandomState(2).randn(1, 4, 3, 64, 64).astype(
+        np.float32)
+    outs, launches = [], []
+    for device in (cuda, "cpu"):
+        vibe = Vibe(VibeConfig(4, 1, 16), device=device,
+                    generator=torch.Generator().manual_seed(3)).eval()
+        backbone = resnet50_init(torch.Generator().manual_seed(2),
+                                 device).eval()
+        before = LS.LAUNCHES
+        with torch.no_grad():
+            out = vibe_demo_forward(vibe, backbone,
+                                    synthetic_smpl_model(1, 64, device=device),
+                                    torch.from_numpy(images).to(device))
+        launches.append(LS.LAUNCHES - before)
+        outs.append({k: v.cpu().numpy() for k, v in out.items()})
+    assert launches == [1, 0]
+    got, want = outs
+    assert set(got) == set(want) and got["theta"].shape == (1, 4, 85)
+    for k, w in want.items():
+        atol = {"theta": sg.THETA_ATOL, "rotmat": sg.THETA_ATOL,
+                "kp_2d": sg.KP2D_RTOL * np.abs(w).max()}.get(k, sg.METRE_ATOL)
+        np.testing.assert_allclose(got[k], w, atol=atol, rtol=0, err_msg=k)
 
 
 def test_live_on_cuda_matches_engine(cuda):
