@@ -1,0 +1,7 @@
+"""`bench_h100.readers.resnet_roofline` in the engine cell."""
+
+from bench_h100.readers import resnet_roofline
+
+
+def read(trace, info):
+    return resnet_roofline(trace, info)
