@@ -24,6 +24,7 @@ from tepose_tpu_torch.models.fast_encoder import (
 from tepose_tpu_torch.models.regressor import Regressor
 from tepose_tpu_torch.models.smpl import SmplModel
 from tepose_tpu_torch.models.temporal import TemporalEncoder, VibeEncoder
+from tepose_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,10 +137,13 @@ def vibe_demo_forward(vibe: Vibe, backbone: ResNet50, smpl: SmplModel,
                       ) -> Dict[str, torch.Tensor]:
     """VIBE over image crops (VIBE_Demo.forward): ImageNet-NORMALISED crops
     (B, T, 3, H, W) -> ResNet-50 features of the B T crops -> `vibe` ->
-    per-frame predictions (B, T, ...). Normalise with
+    per-frame predictions (B, T, ...), under the spans `vibe.backbone` and
+    `vibe.temporal` (`utils.profiling.span`). Normalise with
     `backbone.normalize_crop` first: raw [0, 255] pixels would give garbage
     features without an error. SMPL skins the B T frames in one launch of
     the LBS kernel on CUDA."""
     B, T = images.shape[:2]
-    feats = resnet50_features(backbone, images.flatten(0, 1))
-    return vibe(feats.reshape(B, T, -1), smpl, j_regressor=j_regressor)
+    with span("vibe.backbone"):
+        feats = resnet50_features(backbone, images.flatten(0, 1))
+    with span("vibe.temporal"):
+        return vibe(feats.reshape(B, T, -1), smpl, j_regressor=j_regressor)

@@ -42,6 +42,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tepose_tpu_torch.utils.profiling import span
+
 ENV_COORDINATOR = "TEPOSE_COORDINATOR"
 ENV_NUM_PROCESSES = "TEPOSE_NUM_PROCESSES"
 ENV_PROCESS_ID = "TEPOSE_PROCESS_ID"
@@ -244,7 +246,7 @@ def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
     if not initialized():
         return t
     dev = _device()
-    with torch.profiler.record_function("tepose:all_reduce"):
+    with span("all_reduce"):
         if t.device == dev or (dev.type == "cpu" and t.device.type == "cpu"):
             dist.all_reduce(t)
             return t

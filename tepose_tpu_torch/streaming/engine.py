@@ -23,6 +23,14 @@ depth-2 pipeline: bucket N+1 is dispatched before bucket N is drained, and
 the drain waits on an event recorded after bucket N's copies only. Every
 SMPL forward skins through the CUDA LBS kernel on a CUDA device.
 
+Under a profiler each public call is one `tepose:engine.run` span, and the
+work inside it falls under `engine.pack` (host assembly of a bucket's
+input), `engine.upload`, `engine.features` (ResNet-50), `engine.boot`,
+`engine.scan`, `engine.readback` (the copies' launch), `engine.wait` (the
+drain's event wait) and `engine.unpack` (the per-tracklet host arrays):
+one span each a bucket or super-chunk, none inside a loop over windows or
+backbone chunks (`utils.profiling.span`).
+
 Device work runs under `torch.inference_mode()` with TF32 off for matmuls
 and cuDNN (strict float32, `device_scope`); the caller's flags are restored
 after each call. The flags are process-global: another thread launching
@@ -44,7 +52,7 @@ from tepose_tpu_torch.models.tepose import TePose, Vibe
 from tepose_tpu_torch.parallel.mesh import (
     gather_rows, replicate, row_blocks, split_rows)
 from tepose_tpu_torch.streaming.fast_scan import fast_stream_scan
-from tepose_tpu_torch.utils.profiling import StageTimer
+from tepose_tpu_torch.utils.profiling import StageTimer, span
 
 ENGINE_OUTPUTS = ("theta", "verts", "kp_3d", "kp_2d")
 
@@ -249,28 +257,34 @@ class StreamingEngine:
         """Features of several tracklets' crops, uploaded and run together
         in super-chunks of at most `max_frames_per_call` frames."""
         self._require_backbone()
-        with self.timers.stage("features"):
+        with self.timers.stage("features"), span("engine.run"):
             if not crops_list:
                 return []
             _check_same_dtype(crops_list)
-            flat = np.concatenate([np.ascontiguousarray(c)
-                                   for c in crops_list])
-            feats = np.empty((len(flat), FEAT_DIM), np.float32)
+            with span("engine.pack"):
+                flat = np.concatenate([np.ascontiguousarray(c)
+                                       for c in crops_list])
+                feats = np.empty((len(flat), FEAT_DIM), np.float32)
             for i in range(0, len(flat), self.max_frames_per_call):
                 sub = flat[i:i + self.max_frames_per_call]
                 # a contiguous block of the crops a replica, all queued
                 # before the first is read back
-                blocks = split_rows(len(sub), len(self._replicas))
+                blocks = [(r, rows) for r, rows in enumerate(split_rows(
+                    len(sub), len(self._replicas))) if rows.stop > rows.start]
                 with device_scope():
-                    parts = [self._features(upload(sub[rows], rep.device), r)
-                             for r, (rep, rows) in enumerate(zip(
-                                 self._replicas, blocks))
-                             if rows.stop > rows.start]
-                    feats[i:i + len(sub)] = gather_rows(parts).numpy()
-            out, ofs = [], 0
-            for c in crops_list:
-                out.append(feats[ofs:ofs + len(c)])
-                ofs += len(c)
+                    with span("engine.upload"):
+                        xs = [upload(sub[rows], self._replicas[r].device)
+                              for r, rows in blocks]
+                    with span("engine.features"):
+                        parts = [self._features(x, r)
+                                 for x, (r, _) in zip(xs, blocks)]
+                    with span("engine.readback"):
+                        feats[i:i + len(sub)] = gather_rows(parts).numpy()
+            with span("engine.unpack"):
+                out, ofs = [], 0
+                for c in crops_list:
+                    out.append(feats[ofs:ofs + len(c)])
+                    ofs += len(c)
             return out
 
     # -------------------------------------------------------------- stream
@@ -282,14 +296,16 @@ class StreamingEngine:
         (demo.py:229-252)."""
         S = self.model_cfg.seqlen
         rep = self._replicas[r]
-        vibe_out = rep.vibe(feats[:, :S], rep.smpl)
-        scanned = fast_stream_scan(rep.tepose, rep.smpl, feats, theta_pseu,
-                                   W, outputs=self.outputs)
-        out = {k: torch.cat([vibe_out[k][:, :S - 1], scanned[k]], dim=1)
-               for k in self.outputs}
-        if self.output_dtype is not None:
-            out = {k: v if k == "theta" else v.to(self.output_dtype)
-                   for k, v in out.items()}
+        with span("engine.boot"):
+            vibe_out = rep.vibe(feats[:, :S], rep.smpl)
+        with span("engine.scan"):
+            scanned = fast_stream_scan(rep.tepose, rep.smpl, feats,
+                                       theta_pseu, W, outputs=self.outputs)
+            out = {k: torch.cat([vibe_out[k][:, :S - 1], scanned[k]], dim=1)
+                   for k in self.outputs}
+            if self.output_dtype is not None:
+                out = {k: v if k == "theta" else v.to(self.output_dtype)
+                       for k, v in out.items()}
         return out
 
     def _start_readback(self, outs: List[Dict[str, torch.Tensor]]):
@@ -343,15 +359,17 @@ class StreamingEngine:
 
         def drain(p):
             idxs_p, (hosts, events) = p
-            for event in events:
-                event.synchronize()
-            host = hosts[0] if len(hosts) == 1 else {
-                k: torch.cat([h[k] for h in hosts]) for k in hosts[0]}
-            for b, i in enumerate(idxs_p):
-                T = len(tracks[i])
-                # .copy(): a view would pin the whole padded bucket
-                results[i] = {k: v[b, :T].numpy().copy()
-                              for k, v in host.items()}
+            with span("engine.wait"):
+                for event in events:
+                    event.synchronize()
+            with span("engine.unpack"):
+                host = hosts[0] if len(hosts) == 1 else {
+                    k: torch.cat([h[k] for h in hosts]) for k in hosts[0]}
+                for b, i in enumerate(idxs_p):
+                    T = len(tracks[i])
+                    # .copy(): a view would pin the whole padded bucket
+                    results[i] = {k: v[b, :T].numpy().copy()
+                                  for k, v in host.items()}
 
         for T_pad, idxs in buckets.items():
             B_pad = self._pad_batch(len(idxs))
@@ -367,10 +385,12 @@ class StreamingEngine:
                     results[i] = out
                 continue
             with timed():
-                pseu = self._pseu_batch(B_pad, theta_pseu_list, idxs)
+                with span("engine.pack"):
+                    pseu = self._pseu_batch(B_pad, theta_pseu_list, idxs)
                 with device_scope():
-                    out = self._start_readback(
-                        dispatch(idxs, T_pad, B_pad, pseu))
+                    outs = dispatch(idxs, T_pad, B_pad, pseu)
+                    with span("engine.readback"):
+                        out = self._start_readback(outs)
                 if pending is not None:
                     # drained inside the stage: the wait is part of its time
                     drain(pending)
@@ -402,19 +422,24 @@ class StreamingEngine:
             for r, rows in enumerate(self._blocks(B_pad)):
                 dev = self._replicas[r].device
                 mine = idxs[rows]            # this replica's real tracklets
-                feats = torch.zeros((rows.stop - rows.start, T_pad, FEAT_DIM),
-                                    device=dev)
-                if mine:
-                    real = self._features(upload(np.concatenate(
-                        [crops_list[i] for i in mine]), dev), r)
-                    ofs = 0
-                    for b, i in enumerate(mine):
-                        n = len(crops_list[i])
-                        feats[b, :n] = real[ofs:ofs + n]
-                        ofs += n
+                with span("engine.pack"):
+                    flat = (np.concatenate([crops_list[i] for i in mine])
+                            if mine else None)
+                with span("engine.upload"):
+                    crops = None if flat is None else upload(flat, dev)
+                    theta_pseu = upload(pseu[rows], dev)
+                with span("engine.features"):
+                    feats = torch.zeros(
+                        (rows.stop - rows.start, T_pad, FEAT_DIM), device=dev)
+                    if crops is not None:
+                        real = self._features(crops, r)
+                        ofs = 0
+                        for b, i in enumerate(mine):
+                            n = len(crops_list[i])
+                            feats[b, :n] = real[ofs:ofs + n]
+                            ofs += n
                 outs.append(self._boot_and_scan(
-                    feats, upload(pseu[rows], dev),
-                    T_pad - self.model_cfg.seqlen + 1, r))
+                    feats, theta_pseu, T_pad - self.model_cfg.seqlen + 1, r))
             return outs
 
         def fallback(idxs, theta_pseu_list):
@@ -423,8 +448,9 @@ class StreamingEngine:
                 return self._run_tracklets(
                     feats, [theta_pseu_list[i] for i in idxs])
 
-        return self._run_buckets(crops_list, theta_pseu_list, dispatch,
-                                 "fused", fallback)
+        with span("engine.run"):
+            return self._run_buckets(crops_list, theta_pseu_list, dispatch,
+                                     "fused", fallback)
 
     def run_tracklet(self, features: np.ndarray,
                      theta_pseu: Optional[np.ndarray] = None
@@ -440,18 +466,23 @@ class StreamingEngine:
         """Tracklets of features (T_i, 2048), grouped by padded length,
         each bucket advancing together through one scan; returns
         per-tracklet output dicts in the input order."""
-        with self.timers.stage("stream"):
+        with self.timers.stage("stream"), span("engine.run"):
             return self._run_tracklets(features_list, theta_pseu_list)
 
     def _run_tracklets(self, features_list, theta_pseu_list):
         def dispatch(idxs, T_pad, B_pad, pseu):
-            feats = np.zeros((B_pad, T_pad, FEAT_DIM), np.float32)
-            for b, i in enumerate(idxs):
-                feats[b, :len(features_list[i])] = features_list[i]
-            return [self._boot_and_scan(
-                        upload(feats[rows], self._replicas[r].device),
-                        upload(pseu[rows], self._replicas[r].device),
-                        T_pad - self.model_cfg.seqlen + 1, r)
-                    for r, rows in enumerate(self._blocks(B_pad))]
+            with span("engine.pack"):
+                feats = np.zeros((B_pad, T_pad, FEAT_DIM), np.float32)
+                for b, i in enumerate(idxs):
+                    feats[b, :len(features_list[i])] = features_list[i]
+            outs = []
+            for r, rows in enumerate(self._blocks(B_pad)):
+                dev = self._replicas[r].device
+                with span("engine.upload"):
+                    x = upload(feats[rows], dev)
+                    theta_pseu = upload(pseu[rows], dev)
+                outs.append(self._boot_and_scan(
+                    x, theta_pseu, T_pad - self.model_cfg.seqlen + 1, r))
+            return outs
 
         return self._run_buckets(features_list, theta_pseu_list, dispatch)
