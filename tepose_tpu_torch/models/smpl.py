@@ -16,6 +16,7 @@ the 49-joint output reorders those 54 by JOINT_MAP/JOINT_NAMES.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -375,10 +376,19 @@ def smpl_joints_reduced(model: SmplModel, betas: torch.Tensor,
     return joints54[:, model._joint_map_idx]
 
 
+@functools.cache
+def _subset_index(subset: tuple, device: torch.device) -> torch.Tensor:
+    """`subset` as a long tensor on `device`, made once: indexing with a
+    Python list uploads it at every call, a blocking copy that waits for the
+    device's queue and that a CUDA graph cannot capture."""
+    with torch.inference_mode(False):
+        return torch.tensor(subset, device=device)
+
+
 def regress_h36m_joints(verts: torch.Tensor, j_regressor_h36m: torch.Tensor,
                         subset: Optional[Sequence[int]] = None) -> torch.Tensor:
     """17-joint H36M regression off the posed mesh, optionally subset."""
     joints = torch.einsum("jv,bvk->bjk", j_regressor_h36m, verts)
     if subset is not None:
-        joints = joints[:, list(subset)]
+        joints = joints[:, _subset_index(tuple(subset), joints.device)]
     return joints

@@ -83,6 +83,12 @@ class TePose(nn.Module):
         encoder's current weights."""
         self._fast = None
 
+    def __getstate__(self):
+        """A copy or a pickle leaves the cached pack out: it packs its own
+        weights at first use (the pack holds the scan's captured CUDA
+        graphs, which neither copy nor pickle)."""
+        return {**self.__dict__, "_fast": None}
+
     def forward(self, x: torch.Tensor, smpl: SmplModel, *,
                 j_regressor: Optional[torch.Tensor] = None,
                 train: bool = False,

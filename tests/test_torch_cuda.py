@@ -523,3 +523,141 @@ def test_bf16_train_window_gate_on_cuda(cuda):
     res = bf16_gate.gate(f32, bf16)
     assert all(ok for _, _, ok in res.values()), res
     assert LS.LAUNCHES == before
+
+
+def _scan_setup(cuda, hidden, V, B, T, seed=0):
+    """A TePose of `hidden` units (S = 6, 2 layers), a V-vertex SMPL,
+    features (B, T, 2048), a ring (B, 5, 85) and a J14 regressor, seeded."""
+    from tepose_tpu_torch.models.tepose import TePose, TePoseConfig
+
+    rs = np.random.RandomState(seed)
+    gen = TePose(TePoseConfig(6, 2, hidden), device=cuda,
+                 generator=torch.Generator().manual_seed(seed)).eval()
+    feats, buf0 = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rs.randn(B, T, 2048) * 0.1, rs.randn(B, 5, 85) * 0.1))
+    jreg = torch.from_numpy(rs.rand(17, V).astype(np.float32)).to(cuda)
+    return gen, synthetic_smpl_model(seed, V, device=cuda), feats, buf0, jreg
+
+
+def _eager_scan(gen, smpl, feats, buf0, W, jreg=None,
+                outputs=("theta", "kp_3d")):
+    """The window loop without graphs, on the same device."""
+    from tepose_tpu_torch.streaming import fast_scan as FS
+
+    with torch.inference_mode():
+        return FS._fast_scan(gen, smpl, feats, buf0, W, jreg, outputs, None,
+                             graphed=False)
+
+
+def _assert_rel(got, want, bar=1e-6):
+    for k, v in want.items():
+        gap = (got[k] - v).abs().max().item()
+        assert gap <= bar * v.abs().max().item(), (k, gap)
+
+
+# a small width with and without the J14 regressor, each projection mode;
+# the full width at B = 32 over 123 windows
+@pytest.mark.parametrize("hidden,V,B,T,jreg,pre", [
+    (32, 700, 3, 20, False, True), (32, 700, 3, 20, True, False),
+    (1024, 6890, 32, 128, False, True)])
+def test_graphed_scan_matches_eager_windows(cuda, hidden, V, B, T, jreg,
+                                            pre):
+    """`fast_stream_scan` on the card replays one captured graph a window
+    and skins once a window; its theta, verts and kp_3d equal the eager
+    window loop's within 1e-6 of their magnitude, through every window's
+    theta feedback."""
+    from tepose_tpu_torch.streaming import fast_scan as FS
+
+    gen, smpl, feats, buf0, J = _scan_setup(cuda, hidden, V, B, T)
+    J = J if jreg else None
+    W = T - 5
+    outputs = ("theta", "verts", "kp_3d")
+    before, launches = dict(FS.GRAPH_STATS), LS.LAUNCHES
+    got = FS.fast_stream_scan(gen, smpl, feats, buf0, W, J, outputs, pre)
+    # the first window runs eagerly before the capture, the rest replay
+    assert FS.GRAPH_STATS == {"captures": before["captures"] + 1,
+                              "replays": before["replays"] + W - 1,
+                              "eager_windows": before["eager_windows"] + 1}
+    assert LS.LAUNCHES == launches + W
+    with torch.inference_mode():
+        want = FS._fast_scan(gen, smpl, feats, buf0, W, J, outputs, pre,
+                             graphed=False)
+    assert got["kp_3d"].shape == (B, W, 14 if jreg else 49, 3)
+    _assert_rel(got, want)
+
+
+def test_graphed_scan_outputs_are_fresh(cuda):
+    """Two calls on different features: the second leaves the first call's
+    outputs as they were (they are copies, not the graph's buffers), and
+    the second call reuses the graph."""
+    from tepose_tpu_torch.streaming import fast_scan as FS
+
+    gen, smpl, feats, buf0, _ = _scan_setup(cuda, 32, 700, 3, 20)
+    first = FS.fast_stream_scan(gen, smpl, feats, buf0, 15)
+    kept = {k: v.clone() for k, v in first.items()}
+    captures = FS.GRAPH_STATS["captures"]
+    second = FS.fast_stream_scan(gen, smpl, feats.flip(1), buf0, 15)
+    assert FS.GRAPH_STATS["captures"] == captures
+    for k, v in kept.items():
+        assert torch.equal(first[k], v), k
+        assert not torch.equal(second[k], v), k
+    _assert_rel(second, _eager_scan(gen, smpl, feats.flip(1), buf0, 15))
+
+
+@pytest.mark.parametrize("change", ["allow_tf32", "drop_fast_pack"])
+def test_graphed_scan_recaptures(cuda, change):
+    """TF32 on for matmuls, or a new pack, captures one graph more, and the
+    replays match the eager window loop under the same flags and weights."""
+    from tepose_tpu_torch.streaming import fast_scan as FS
+
+    gen, smpl, feats, buf0, _ = _scan_setup(cuda, 32, 700, 3, 20)
+    FS.fast_stream_scan(gen, smpl, feats, buf0, 15)
+    captures = FS.GRAPH_STATS["captures"]
+    try:
+        if change == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            with torch.no_grad():
+                gen.encoder.gru_fwd.weight_hh_l0.mul_(1.5)
+            gen.drop_fast_pack()
+        got = FS.fast_stream_scan(gen, smpl, feats, buf0, 15)
+        assert FS.GRAPH_STATS["captures"] == captures + 1
+        want = _eager_scan(gen, smpl, feats, buf0, 15)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _assert_rel(got, want)
+
+
+def test_graphed_scan_counts_one_lbs_launch_a_window(cuda):
+    """After the capture, each replayed window adds the one skinning launch
+    its graph holds to `lbs_skinning.LAUNCHES`."""
+    from tepose_tpu_torch.streaming import fast_scan as FS
+
+    gen, smpl, feats, buf0, _ = _scan_setup(cuda, 32, 700, 3, 20)
+    FS.fast_stream_scan(gen, smpl, feats, buf0, 15)
+    before = LS.LAUNCHES
+    FS.fast_stream_scan(gen, smpl, feats, buf0, 12)
+    assert LS.LAUNCHES == before + 12
+
+
+def test_graphed_scan_reaches_a_frozen_ring(cuda, monkeypatch):
+    """A `_feedback_loop` whose ring never advances, patched in as the
+    benchmark's fault test patches it, changes the graphed scan's outputs:
+    the replays read the theta feedback the loop hands them."""
+    from tepose_tpu_torch.streaming import fast_scan as FS
+
+    gen, smpl, feats, buf0, _ = _scan_setup(cuda, 32, 700, 3, 20)
+    want = FS.fast_stream_scan(gen, smpl, feats, buf0, 15)
+
+    def frozen_ring(window, theta_buf0, num_windows, outputs):
+        zero = torch.zeros_like(theta_buf0[:, :1])
+        outs = [window(k, torch.cat([theta_buf0, zero], dim=1))
+                for k in range(num_windows)]
+        return {k: torch.stack([o[k] for o in outs], dim=1) for k in outputs}
+
+    monkeypatch.setattr(FS, "_feedback_loop", frozen_ring)
+    replays = FS.GRAPH_STATS["replays"]
+    got = FS.fast_stream_scan(gen, smpl, feats, buf0, 15)
+    assert FS.GRAPH_STATS["replays"] == replays + 15
+    assert torch.equal(got["theta"][:, 0], want["theta"][:, 0])
+    assert (got["theta"][:, 1:] - want["theta"][:, 1:]).abs().max() > 1e-6

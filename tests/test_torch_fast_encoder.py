@@ -223,3 +223,125 @@ def test_fast_stream_scan_window_guard(scan_setup):
         fast_stream_scan(*args, 0)
     out = fast_stream_scan(*args, 3, outputs=("theta",))
     assert out["theta"].shape == (2, 3, 85)
+
+
+def test_fast_stream_scan_runs_eager_windows_on_the_cpu(scan_setup):
+    """On the CPU every window runs its ops eagerly: no graph is captured,
+    replayed or cached on the pack."""
+    import tepose_tpu_torch.streaming.fast_scan as FS
+
+    s = scan_setup
+    before = dict(FS.GRAPH_STATS)
+    fast_stream_scan(s["gen"], s["smpl"], torch.from_numpy(s["feats"]),
+                     torch.from_numpy(s["buf0"]), s["W"])
+    assert FS.GRAPH_STATS == {**before,
+                              "eager_windows": before["eager_windows"]
+                              + s["W"]}
+    assert "window_graphs" not in s["gen"].fast_pack()
+
+
+class _EagerGraph:
+    """Stands in for `_WindowGraph` on the CPU: runs the body it was given
+    eagerly and keeps what a graph would keep."""
+
+    def __init__(self, body, keep, held):
+        self.body, self.keep = body, keep
+
+    def __call__(self, x, theta_fb):
+        out = self.body(x, theta_fb)
+        return {k: out[k] for k in self.keep}
+
+
+# (what changes from the first call, whether the graph key changes with it)
+_KEY_CASES = [
+    ("T", False), ("num_windows", False), ("B", True), ("outputs", True),
+    ("precompute", True), ("j_regressor", True), ("matmul_tf32", True),
+    ("cudnn_tf32", True), ("matmul_precision", True)]
+
+
+@pytest.mark.parametrize("change,recaptures", _KEY_CASES,
+                         ids=[c for c, _ in _KEY_CASES])
+def test_graph_cache_key(scan_setup, monkeypatch, change, recaptures):
+    """The graphed path's cache, run on the CPU with a stand-in for the
+    capture: a second call makes a second graph exactly when it changes
+    what a capture bakes in (B, the outputs, the projection mode, the J14
+    regressor, each float32 precision flag), and reuses the first when only
+    T or the window count change. Its outputs are the eager path's."""
+    import tepose_tpu_torch.streaming.fast_scan as FS
+
+    monkeypatch.setattr(FS, "_WindowGraph", _EagerGraph)
+    s = scan_setup
+    gen = _tepose(2, 32)[2]
+    feats = torch.from_numpy(s["feats"])
+    buf0 = torch.from_numpy(s["buf0"])
+    base = dict(feats=feats, buf0=buf0, W=s["W"], jreg=None,
+                outputs=("theta", "kp_3d"), pre=True)
+    other = dict(base)
+    if change == "T":
+        other.update(feats=feats[:, :12], W=7)
+    elif change == "num_windows":
+        other.update(W=3)
+    elif change == "B":
+        other.update(feats=feats[:1], buf0=buf0[:1])
+    elif change == "outputs":
+        other.update(outputs=("theta", "kp_3d", "verts"))
+    elif change == "precompute":
+        other.update(pre=False)
+    elif change == "j_regressor":
+        other.update(jreg=torch.from_numpy(s["jreg"]))
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+
+    def run(a, graphed):
+        return FS._fast_scan(gen, s["smpl"], a["feats"], a["buf0"], a["W"],
+                             a["jreg"], a["outputs"], a["pre"],
+                             graphed=graphed)
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        run(base, graphed=True)
+        if change == "matmul_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        elif change == "cudnn_tf32":
+            torch.backends.cudnn.allow_tf32 = True
+        elif change == "matmul_precision":
+            torch.set_float32_matmul_precision("medium")
+        got = run(other, graphed=True)
+        want = run(other, graphed=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.backends.cudnn.allow_tf32 = flags[1]
+        torch.set_float32_matmul_precision(flags[2])
+    assert len(gen.fast_pack()["window_graphs"]) == (2 if recaptures else 1)
+    assert got.keys() == want.keys() == set(other["outputs"])
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], atol=0, rtol=0)
+    gen.drop_fast_pack()
+    assert "window_graphs" not in gen.fast_pack()
+
+
+def test_copies_of_tepose_pack_their_own_weights(scan_setup, monkeypatch):
+    """A deep copy or a pickle of a TePose whose pack holds window graphs
+    (a mesh replicates the model by deep copy) leaves the pack out, graphs
+    and all; the original keeps its own."""
+    import copy
+    import pickle
+
+    import tepose_tpu_torch.streaming.fast_scan as FS
+
+    monkeypatch.setattr(FS, "_WindowGraph", _EagerGraph)
+    s = scan_setup
+    gen = _tepose(2, 32)[2]
+    FS._fast_scan(gen, s["smpl"], torch.from_numpy(s["feats"]),
+                  torch.from_numpy(s["buf0"]), 3, None, ("theta",), True,
+                  graphed=True)
+    pack = gen.fast_pack()
+    assert len(pack["window_graphs"]) == 1
+    for other in (copy.deepcopy(gen), pickle.loads(pickle.dumps(gen))):
+        assert other._fast is None
+        for a, b in zip(other.state_dict().values(),
+                        gen.state_dict().values()):
+            assert torch.equal(a, b)
+    assert gen.fast_pack() is pack
