@@ -25,6 +25,9 @@ the shared fake-discriminator pass, the segment's measurement modes and
 evaluate's `--precision` tiers (`precision.py`). With them the port does
 everything the JAX package does apart from the remote-TPU plumbing
 (flat packing, the compile cache) and the JAX-only FLOP counter.
+Beyond the JAX package, the engine serves HMR 2.0 per frame
+(`models/vit.py`, `models/hmr2.py`; no JAX counterpart, held to the plain
+reference `tests/plain_hmr2.py`).
 Every SMPL forward that builds the mesh skins through the LBS kernel, CUDA
 C++ written for sm_90a (`csrc/lbs_skinning.cu`, built by `kernels.py`);
 the train step and SMPLify's objective read the vertex-free joints instead.

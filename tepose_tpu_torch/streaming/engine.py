@@ -1,4 +1,5 @@
-"""The offline serving engine: crops -> features -> windowed scan -> outputs.
+"""The offline serving engine: crops -> features -> windowed scan -> outputs,
+or crops -> a per-frame model -> outputs.
 
 Port of `tepose_tpu/streaming/engine.py` (`StreamingEngine`,
 `ENGINE_OUTPUTS`, `ENGINE_PRESETS`, `apply_engine_preset`,
@@ -31,6 +32,18 @@ drain's event wait) and `engine.unpack` (the per-tracklet host arrays):
 one span each a bucket or super-chunk, none inside a loop over windows or
 backbone chunks (`utils.profiling.span`).
 
+The model it is given picks the route. A `TePose` (with its VIBE
+bootstrap and a ResNet-50) takes the windowed route above; an `HMR2`
+(`models/hmr2.py`) takes the per-frame route (`_run_frames`): only the
+tracklets' own crops, flattened across tracklets with no padding, are
+uploaded in super-chunks of at most `max_frames_per_call` frames and run
+`crop_batch` at a time through the ViT and the head (`hmr2_forward`, under
+the spans `hmr2.backbone` and `hmr2.head`), the super-chunks forming the
+same depth-2 pipeline, readback and per-tracklet unpack. It takes
+tracklets of any length from 1, has no window, no feedback and no 2048-d
+feature, so the feature entry points (`run_tracklet(s)`,
+`extract_features*`) refuse it.
+
 Device work runs under `torch.inference_mode()` with TF32 off for matmuls
 and cuDNN (strict float32, `device_scope`); the caller's flags are restored
 after each call. The flags are process-global: another thread launching
@@ -47,6 +60,7 @@ import torch
 
 from tepose_tpu_torch.models.backbone import (
     FEAT_DIM, ResNet50, normalize_crop, to_serving_layout)
+from tepose_tpu_torch.models.hmr2 import HMR2, hmr2_forward
 from tepose_tpu_torch.models.smpl import SmplModel
 from tepose_tpu_torch.models.tepose import TePose, Vibe
 from tepose_tpu_torch.parallel.mesh import (
@@ -153,10 +167,11 @@ def _backbone_chunk(backbone: ResNet50, crops: torch.Tensor) -> torch.Tensor:
 
 
 class _Replica:
-    """The engine's modules on one device."""
+    """The engine's modules on one device; `tepose` is the model, a TePose
+    or an HMR2."""
 
-    def __init__(self, smpl, tepose, vibe, backbone):
-        self.smpl, self.tepose, self.vibe = smpl, tepose, vibe
+    def __init__(self, smpl, model, vibe, backbone):
+        self.smpl, self.tepose, self.vibe = smpl, model, vibe
         self.backbone = backbone
         self.device = smpl.v_template.device
 
@@ -164,15 +179,18 @@ class _Replica:
 class StreamingEngine:
     """Per-tracklet streaming inference with device-resident modules.
 
-    smpl, tepose, vibe and backbone must lie on one device, which the
+    smpl, model, vibe and backbone must lie on one device, which the
     engine runs on (or, with `mesh`, replicates from). tracklets are numpy
-    arrays and results come back as numpy arrays. With `backbone=None` the
-    engine serves precomputed features only (`run_tracklet(s)`); the crop
-    entry points then raise.
+    arrays and results come back as numpy arrays. `model` is a TePose,
+    served with `vibe` and `backbone` through the windowed route, or an
+    HMR2, served per frame from crops with neither (module docstring).
+    With `backbone=None` a TePose engine serves precomputed features only
+    (`run_tracklet(s)`); the crop entry points then raise.
     """
 
-    def __init__(self, smpl: SmplModel, tepose: TePose, vibe: Vibe,
-                 backbone: Optional[ResNet50], crop_batch: int = 128,
+    def __init__(self, smpl: SmplModel, model: TePose | HMR2,
+                 vibe: Optional[Vibe] = None,
+                 backbone: Optional[ResNet50] = None, crop_batch: int = 128,
                  window_bucket: int = 64, max_frames_per_call: int = 4096,
                  backbone_dtype: Optional[torch.dtype] = None, mesh=None,
                  outputs: Sequence[str] = ENGINE_OUTPUTS,
@@ -185,13 +203,23 @@ class StreamingEngine:
                              f"choose from {ENGINE_OUTPUTS}")
         if not outputs:
             raise ValueError("outputs must be non-empty")
+        self.per_frame = isinstance(model, HMR2)
+        if self.per_frame:
+            if vibe is not None or backbone is not None:
+                raise ValueError("HMR 2.0 brings its own backbone and no "
+                                 "bootstrap: pass vibe=None, backbone=None")
+            if backbone_dtype not in (None, torch.float32):
+                raise ValueError(f"the per-frame route runs float32 only, "
+                                 f"not {backbone_dtype}")
+        elif vibe is None:
+            raise ValueError("a TePose engine needs its VIBE bootstrap")
         self.device = smpl.v_template.device
-        check_device(self.device, tepose=tepose, vibe=vibe, backbone=backbone)
+        check_device(self.device, model=model, vibe=vibe, backbone=backbone)
         self.smpl = smpl
-        self.tepose = tepose
+        self.tepose = model
         self.vibe = vibe
-        self.model_cfg = tepose.cfg
-        self.vibe_cfg = vibe.cfg
+        self.model_cfg = model.cfg
+        self.vibe_cfg = None if vibe is None else vibe.cfg
         # crops per backbone chunk. The JAX package's 16 in float32 was
         # tuned to the TPU's on-chip memory; on an H100 128 is faster in
         # both dtypes (chip_smoke.py phase 7 measures both)
@@ -208,7 +236,7 @@ class StreamingEngine:
         self.output_dtype = output_dtype
         self.timers = StageTimer()
         self.mesh = mesh
-        modules = (smpl, tepose, vibe, self.backbone)
+        modules = (smpl, model, vibe, self.backbone)
         self._replicas = [_Replica(*(modules if mesh is None else r))
                           for r in ([None] if mesh is None
                                     else replicate(modules, mesh))]
@@ -231,7 +259,15 @@ class StreamingEngine:
 
     # ------------------------------------------------------------ features
 
+    def _require_windowed(self, entry: str) -> None:
+        if self.per_frame:
+            raise ValueError(
+                f"{entry} serves TePose's windows of 2048-d features; this "
+                "engine holds a per-frame model (HMR 2.0), which runs from "
+                "crops: call run_tracklets_from_crops")
+
     def _require_backbone(self) -> None:
+        self._require_windowed("extract_features")
         if self.backbone is None:
             raise ValueError(
                 "this StreamingEngine was built with backbone=None: it "
@@ -406,7 +442,8 @@ class StreamingEngine:
         on the device, one upload and one readback per length bucket.
 
         crops_list: (T_i, 3, H, W) arrays, all uint8 (raw) or all float32
-        (normalised); mixing them is rejected. Returns per-tracklet dicts of
+        (normalised); mixing them is rejected. A per-frame model takes its
+        own route here (`_run_frames`). Returns per-tracklet dicts of
         (T_i, ...) outputs, in the input order. Only the tracklets' own
         frames go through the backbone; padded frames get zero features,
         which reach only outputs past each tracklet's end (the windows are
@@ -414,6 +451,12 @@ class StreamingEngine:
         takes the two-stage path (super-chunked `extract_features_multi`,
         then `run_tracklets`), bounding memory on long videos.
         """
+        if self.per_frame:
+            if theta_pseu_list is not None:
+                raise ValueError("a per-frame model feeds back no theta: "
+                                 "theta_pseu_list must be None")
+            with span("engine.run"):
+                return self._run_frames(crops_list)
         self._require_backbone()
         _check_same_dtype(crops_list)
 
@@ -452,6 +495,94 @@ class StreamingEngine:
             return self._run_buckets(crops_list, theta_pseu_list, dispatch,
                                      "fused", fallback)
 
+    # ----------------------------------------------------------- per frame
+
+    def _frames_on(self, crops: torch.Tensor, r: int = 0
+                   ) -> Dict[str, torch.Tensor]:
+        """Replica r's per-frame model over its device's crops (N, 3, S, S),
+        `crop_batch` at a time; uint8 crops are normalised on the device,
+        chunk by chunk."""
+        rep = self._replicas[r]
+        parts = []
+        for i in range(0, len(crops), self.crop_batch):
+            x = crops[i:i + self.crop_batch]
+            out = hmr2_forward(rep.tepose, rep.smpl, normalize_crop(x)
+                               if x.dtype == torch.uint8 else x)
+            parts.append({k: out[k] for k in self.outputs})
+        out = parts[0] if len(parts) == 1 else {
+            k: torch.cat([p[k] for p in parts]) for k in self.outputs}
+        if self.output_dtype is not None:
+            out = {k: v if k == "theta" else v.to(self.output_dtype)
+                   for k, v in out.items()}
+        return out
+
+    def _run_frames(self, crops_list: List[np.ndarray]
+                    ) -> List[Dict[str, np.ndarray]]:
+        """The per-frame route of `run_tracklets_from_crops`: the
+        tracklets' crops flattened in order, in super-chunks of at most
+        `max_frames_per_call` frames (a tracklet may straddle two), each
+        split over the replicas, uploaded, run and its outputs' copy
+        started before the previous super-chunk is drained into the
+        per-tracklet arrays."""
+        _check_same_dtype(crops_list)
+        S = self.model_cfg.image_size
+        for c in crops_list:
+            if len(c) < 1 or tuple(c.shape[1:]) != (3, S, S):
+                raise ValueError(f"a tracklet of crops {tuple(c.shape)}: "
+                                 f"the per-frame route takes (T >= 1, 3, "
+                                 f"{S}, {S})")
+        starts = np.cumsum([0] + [len(c) for c in crops_list])
+        results: List[Dict[str, np.ndarray]] = [{} for _ in crops_list]
+
+        def tracklets(a, b):
+            """(i, lo, hi): tracklet i's flat frames [lo, hi) in [a, b)."""
+            i = int(np.searchsorted(starts, a, side="right")) - 1
+            while i < len(crops_list) and starts[i] < b:
+                yield i, max(starts[i], a), min(starts[i + 1], b)
+                i += 1
+
+        def drain(a, b, hosts, events):
+            with span("engine.wait"):
+                for event in events:
+                    event.synchronize()
+            with span("engine.unpack"):
+                host = hosts[0] if len(hosts) == 1 else {
+                    k: torch.cat([h[k] for h in hosts]) for k in hosts[0]}
+                for i, lo, hi in tracklets(a, b):
+                    for k, v in host.items():
+                        v = v.numpy()
+                        if k not in results[i]:
+                            results[i][k] = np.empty(
+                                (len(crops_list[i]),) + v.shape[1:], v.dtype)
+                        results[i][k][lo - starts[i]:hi - starts[i]] = \
+                            v[lo - a:hi - a]
+
+        pending = None  # (a, b, host tensors, events)
+        for a in range(0, int(starts[-1]), self.max_frames_per_call):
+            b = min(a + self.max_frames_per_call, int(starts[-1]))
+            with self.timers.stage("frames"):
+                with span("engine.pack"):
+                    flat = np.concatenate([crops_list[i][lo - starts[i]:
+                                                         hi - starts[i]]
+                                           for i, lo, hi in tracklets(a, b)])
+                blocks = [(r, rows) for r, rows in enumerate(split_rows(
+                    b - a, len(self._replicas))) if rows.stop > rows.start]
+                with device_scope():
+                    with span("engine.upload"):
+                        xs = [upload(flat[rows], self._replicas[r].device)
+                              for r, rows in blocks]
+                    outs = [self._frames_on(x, r)
+                            for x, (r, _) in zip(xs, blocks)]
+                    with span("engine.readback"):
+                        out = self._start_readback(outs)
+                if pending is not None:
+                    drain(*pending)
+            pending = (a, b) + out
+        if pending is not None:
+            with self.timers.stage("frames"):
+                drain(*pending)
+        return results
+
     def run_tracklet(self, features: np.ndarray,
                      theta_pseu: Optional[np.ndarray] = None
                      ) -> Dict[str, np.ndarray]:
@@ -466,6 +597,7 @@ class StreamingEngine:
         """Tracklets of features (T_i, 2048), grouped by padded length,
         each bucket advancing together through one scan; returns
         per-tracklet output dicts in the input order."""
+        self._require_windowed("run_tracklets")
         with self.timers.stage("stream"), span("engine.run"):
             return self._run_tracklets(features_list, theta_pseu_list)
 
