@@ -7,7 +7,8 @@
 Phases, each of which raises on failure (no phase's error is caught):
   0. require CUDA; strict float32 (TF32 off for matmuls and cuDNN); print
      the card's name and power limit as nvidia-smi reports them;
-  1. build every CUDA kernel of the port from csrc/ with nvcc;
+  1. build every CUDA kernel of the port from csrc/ with nvcc, each
+     library's seconds printed where `kernels.BUILD_SECONDS` has them;
   2. LBS skinning kernel against its plain PyTorch version on the card, at
      V = 6890 with B in {1, 3, 8, 32, 128, 192, 256} (the main path's launch sizes
      and a large batch), at ragged V in {700, 301} with B = 3, and on inputs
@@ -248,6 +249,25 @@ Phases, each of which raises on failure (no phase's error is caught):
      frames/s, the median of 5 calls after a warm-up, and in turns with
      them the ResNet-50 features of the 32 crops alone.
 
+ 18. ViT-H's linear layers (`ops/vit_linear.py`, the 3xTF32 kernel
+     `csrc/vit_gemm_3xtf32.cu`): the library's build seconds as
+     `kernels.build` recorded them; one 128-crop chunk of HMR 2.0's main
+     path at the published widths (`StreamingEngine.run_tracklets_from_crops`
+     with an `HMR2` of seeded weights on one tracklet of 128 seeded uint8
+     256 x 256 crops, as `hmr2-engine-crops` runs it), with the kernel's
+     count zeroed just before and read just after: one chunk, 4 launches
+     for each of the ViT's 32 blocks, finite outputs; at the
+     four linears' shapes (qkv, proj, fc1, fc2) for M = 24,576 (128 crops
+     of 192 tokens, the main path), 2,112 (a call's last chunk of 11) and
+     192 (one crop), the worst error from the float64 product of the
+     kernel and of cuBLAS's strict float32 SGEMM (the kernel's within 4x
+     of the SGEMM's) and of cuBLAS in TF32; then at M = 24,576 the device
+     time per call of the kernel (`device_ms`, in turns with the others),
+     of the plain version (`F.linear` and its GELU or residual add), of
+     cuBLAS strict float32 alone (`library_ms`) and of cuBLAS TF32 for
+     scale, beside the bounds: the products' flops at the 494.5 TFLOP/s
+     TF32 peak, and three times that, 3xTF32's ceiling.
+
 Phases 2, 9d and 11c also time the library call that computes the LBS
 kernel's function, one `torch.einsum("jv,bjik,bvk->bvi")` over the top
 rows of the transforms and the homogeneous vertices (built outside the
@@ -320,8 +340,10 @@ def phase1_build() -> float:
     t0 = time.time()
     kernels.build_all()
     seconds = time.time() - t0
+    each = getattr(kernels, "BUILD_SECONDS", {})   # a parent tree may lack it
     print(f"phase 1: kernels built and loaded in {seconds:.2f} s "
-          f"({kernels.BUILD_DIR})")
+          f"({''.join(f'{k} {v:.2f} s; ' for k, v in each.items())}"
+          f"{kernels.BUILD_DIR})")
     return seconds
 
 
@@ -2660,6 +2682,136 @@ def phase17_vibe_demo(card: str) -> dict:
             "ms": ms}
 
 
+# phase 18's shapes: ViT-H's four linears (name, N, K, epilogue) and the
+# row counts of the main path
+VIT_SHAPES = (("qkv", 3840, 1280, "bias"), ("proj", 1280, 1280, "residual"),
+              ("fc1", 5120, 1280, "gelu"), ("fc2", 1280, 5120, "residual"))
+VIT_ROWS = (24_576, 2112, 192)
+VIT_ERR_RATIO = 4.0     # the kernel's float64 error within 4x of the SGEMM's
+
+
+def hmr2_chunk_launches() -> int:
+    """Phase 18's count: the ViT kernel's launches in one 128-crop chunk
+    of HMR 2.0 through the engine's per-frame route, at the published
+    widths."""
+    import tepose_tpu_torch.models.hmr2 as hmr2_mod
+    from tepose_tpu_torch.models.smpl import synthetic_smpl_model
+    from tepose_tpu_torch.ops import vit_linear as VL
+    from tepose_tpu_torch.streaming.engine import StreamingEngine
+
+    model = hmr2_mod.HMR2(device="meta").to_empty(device="cuda").eval()
+    g = torch.Generator(device="cuda").manual_seed(18)
+    with torch.no_grad():
+        for t in [*model.parameters(), *model.buffers()]:
+            t.copy_(torch.randn(t.shape, device="cuda", generator=g) * 0.02)
+    engine = StreamingEngine(synthetic_smpl_model(0, LBS_V, device="cuda"),
+                             model, crop_batch=128, preset="parity")
+    S = model.cfg.image_size
+    crops = np.random.RandomState(18).randint(
+        0, 256, (128, 3, S, S)).astype(np.uint8)
+    chunks = hmr2_mod.HMR2_STATS["chunks"]
+    VL.LAUNCHES = 0
+    out, = engine.run_tracklets_from_crops([crops])
+    torch.cuda.synchronize()
+    launches = VL.LAUNCHES
+    chunks = hmr2_mod.HMR2_STATS["chunks"] - chunks
+    want = 4 * model.cfg.vit.depth
+    print(f"phase 18: run_tracklets_from_crops on HMR 2.0 (ViT-H, "
+          f"{model.cfg.vit.depth} blocks), 128 uint8 {S}^2 crops: "
+          f"{chunks} chunk(s), vit_linear launches {launches} (want "
+          f"{want} a chunk)")
+    if chunks != 1 or launches != want:
+        raise RuntimeError(f"one 128-crop chunk of HMR 2.0 made {chunks} "
+                           f"chunks and {launches} vit_linear launches, not "
+                           f"1 and {want}")
+    bad = [k for k, v in out.items() if not np.isfinite(v).all()]
+    if bad:
+        raise RuntimeError(f"HMR 2.0 through the engine: non-finite {bad}")
+    return launches
+
+
+def phase18_vit_linear(card: str) -> dict:
+    import torch.nn.functional as F
+    from kernel_timing import device_ms
+    from tepose_tpu_torch import kernels
+    from tepose_tpu_torch.ops import vit_linear as VL
+    from tepose_tpu_torch.utils.flops import H100_PEAK_FLOPS
+
+    kernels.vit_library()
+    build_s = kernels.BUILD_SECONDS["tepose_vit_gemm"]
+    print(f"phase 18: vit_gemm_3xtf32 library built (or found) in "
+          f"{build_s:.2f} s")
+    launches = hmr2_chunk_launches()
+    peak = H100_PEAK_FLOPS["NVIDIA H100 80GB HBM3"]["tf32"]
+    dev = torch.device("cuda")
+    res = {"build_s": build_s, "launches_per_hmr2_chunk": launches,
+           "err": {}, "ms": {}}
+
+    def rel(y, want):
+        return float((y.double() - want).abs().max() / want.abs().max())
+
+    def tf32(fn):
+        def run():
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return fn()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        return run
+
+    for name, N, K, epi in VIT_SHAPES:
+        for M in VIT_ROWS:
+            g = torch.Generator(device=dev).manual_seed(M + N + K)
+            x = torch.randn(M, K, device=dev, generator=g)
+            w = torch.randn(N, K, device=dev, generator=g) * 0.02
+            b = torch.randn(N, device=dev, generator=g) * 0.02
+            r = torch.randn(M, N, device=dev, generator=g)
+            kw = ({"gelu": True} if epi == "gelu" else
+                  {"residual": r} if epi == "residual" else {})
+            want = VL.vit_linear_reference(
+                x.double(), w.double(), b.double(), gelu=epi == "gelu",
+                residual=r.double() if epi == "residual" else None)
+            kernel = lambda: VL.vit_linear(x, w, b, **kw)  # noqa: E731
+            plain = lambda: VL.vit_linear_reference(x, w, b, **kw)  # noqa
+            library = lambda: F.linear(x, w, b)  # noqa: E731
+            e = {"kernel": rel(kernel(), want), "sgemm": rel(plain(), want),
+                 "tf32": rel(tf32(plain)(), want)}
+            torch.cuda.synchronize()
+            res["err"][f"{name}.{M}"] = e
+            bn = VL.block_n(M, N, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            print(f"phase 18: {name} M={M} N={N} K={K} ({epi}, tile 128 x "
+                  f"{bn}): worst error from float64 kernel {e['kernel']:.3e}, "
+                  f"cuBLAS float32 {e['sgemm']:.3e}, cuBLAS TF32 "
+                  f"{e['tf32']:.3e}")
+            if not e["kernel"] <= VIT_ERR_RATIO * e["sgemm"]:
+                raise RuntimeError(f"vit_linear kernel at {name} M={M} is not "
+                                   f"float32-accurate: {e}")
+            if M != VIT_ROWS[0]:
+                continue
+            times = {kernel: [], plain: [], library: []}
+            lib_tf32 = tf32(library)
+            times[lib_tf32] = []
+            for fn in (plain, library, lib_tf32, kernel, kernel, lib_tf32,
+                       library, plain):
+                times[fn] += device_ms(fn, launches=10, reps=5)
+            ms = {k: float(np.median(times[fn])) for k, fn in
+                  (("kernel", kernel), ("plain", plain),
+                   ("library", library), ("library_tf32", lib_tf32))}
+            flops = 2.0 * M * N * K
+            ms["bound"] = flops / peak * 1e3
+            ms["bound_3xtf32"] = 3 * ms["bound"]
+            res["ms"][name] = ms
+            print(f"phase 18: {name} M={M}: kernel {ms['kernel']:.4f} ms "
+                  f"({flops / ms['kernel'] / 1e9:.1f} TFLOP/s, "
+                  f"{ms['bound_3xtf32'] / ms['kernel']:.1%} of the 3xTF32 "
+                  f"ceiling {ms['bound_3xtf32']:.4f} ms; TF32 bound "
+                  f"{ms['bound']:.4f} ms); plain {ms['plain']:.4f} ms; "
+                  f"library (cuBLAS float32) {ms['library']:.4f} ms; cuBLAS "
+                  f"TF32 {ms['library_tf32']:.4f} ms [{card}]")
+    return res
+
+
 def serve_train_timings(card: str) -> None:
     """`python3 chip_smoke.py --timings`: phases 1, 5 and 7, and phase 8c
     on a freshly built training loop after one untimed segment; nothing
@@ -3013,6 +3165,7 @@ def main() -> None:
     p15 = timed(15, phase15_insta, card)
     p16 = timed(16, phase16_bench, card)
     p17 = timed(17, phase17_vibe_demo, card)
+    p18 = timed(18, phase18_vit_linear, card)
     print(f"seconds by phase: {json.dumps(spent)}")
     big = max(LBS_BATCHES)
     bound_ms, bound_by = kern["bound"][big]
@@ -3046,7 +3199,13 @@ def main() -> None:
         "share_of_bound_by_B": {B: kern["bound"][B][0] / ms
                                 for B, ms in kern["device_ms"].items()},
         "host_us_per_call": kern["host_us"],
-        "card": card}]}))
+        "card": card}, {
+        "name": "vit_linear", "route": "cuda",
+        "source": "tepose_tpu_torch/csrc/vit_gemm_3xtf32.cu",
+        "replaces": None,
+        "launches_per_hmr2_chunk": p18["launches_per_hmr2_chunk"],
+        "build_s": p18["build_s"], "ms_by_linear": p18["ms"],
+        "err_by_shape": p18["err"], "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -25,6 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tepose_tpu_torch
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+
+# seconds the last `build` of each library took in this process
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -51,20 +55,22 @@ def library_path(name: str, sources: list[str]) -> Path:
 
 
 def build(name: str, sources: list[str]) -> Path:
-    """Compile `sources` into lib<name>_<hash>.so unless it is there."""
+    """Compile `sources` into lib<name>_<hash>.so unless it is there; the
+    seconds it took (finding it, or compiling it) go to BUILD_SECONDS."""
+    t0 = time.perf_counter()
     out = library_path(name, sources)
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC_DIR / s) for s in sources]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    if not out.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(CSRC_DIR / s) for s in sources]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
     return out
 
 
@@ -83,6 +89,21 @@ def lbs_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def vit_library() -> ctypes.CDLL:
+    """The ViT's 3xTF32 GEMM library, built on first call, with typed
+    entries."""
+    lib = ctypes.CDLL(str(build("tepose_vit_gemm", ["vit_gemm_3xtf32.cu"])))
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.tepose_vit_linear_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.tepose_vit_linear_f32.restype = i
+    lib.tepose_vit_error_string.argtypes = [i]
+    lib.tepose_vit_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build_all() -> None:
     """Build and load every kernel library of the port."""
     lbs_library()
+    vit_library()

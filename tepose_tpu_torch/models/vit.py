@@ -13,7 +13,11 @@ training-only and left out.
 
 Attention goes through `F.scaled_dot_product_attention`, which computes
 softmax(q k^T / sqrt(d)) v as the published code writes it out; in
-float32 on an H100 that is PyTorch's memory-efficient kernel.
+float32 on an H100 that is PyTorch's memory-efficient kernel. A block's
+four linear layers go through `ops.vit_linear.vit_linear`, which on the
+card is one 3xTF32 GEMM with the bias, fc1's GELU and the block's residual
+adds in its epilogue, and on the CPU `F.linear` and the same elementwise
+ops; the `nn.Linear` modules hold the weights under their published names.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tepose_tpu_torch.ops.vit_linear import vit_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +66,8 @@ class ViTConfig:
 
 class PatchEmbed(nn.Module):
     """`Conv2d(3, dim, patch, stride=patch, padding=2)`, flattened to
-    tokens (B, N, dim) in row-major patch order."""
+    tokens (B, N, dim) in row-major patch order, contiguous (the block's
+    residual, which the fused linears read row by row)."""
 
     def __init__(self, cfg: ViTConfig, device):
         super().__init__()
@@ -69,11 +76,12 @@ class PatchEmbed(nn.Module):
                               padding=cfg.patch_padding, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(x).flatten(2).transpose(1, 2)
+        return self.proj(x).flatten(2).transpose(1, 2).contiguous()
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention: one `qkv` projection, `proj` out."""
+    """Multi-head self-attention: one `qkv` projection, `proj` out, to
+    which `residual`, where given, is added."""
 
     def __init__(self, cfg: ViTConfig, device):
         super().__init__()
@@ -82,24 +90,29 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=cfg.qkv_bias, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
         B, N, C = x.shape
-        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, -1).permute(
-            2, 0, 3, 1, 4)
+        qkv = vit_linear(x, self.qkv.weight, self.qkv.bias).reshape(
+            B, N, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
         out = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        return vit_linear(out.transpose(1, 2).reshape(B, N, C),
+                          self.proj.weight, self.proj.bias, residual=residual)
 
 
 class Mlp(nn.Module):
-    """fc1, exact GELU, fc2."""
+    """fc1, exact GELU, fc2, to which `residual`, where given, is added."""
 
     def __init__(self, dim: int, hidden: int, device):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden, device=device)
         self.fc2 = nn.Linear(hidden, dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        h = vit_linear(x, self.fc1.weight, self.fc1.bias, gelu=True)
+        return vit_linear(h, self.fc2.weight, self.fc2.bias,
+                          residual=residual)
 
 
 class Block(nn.Module):
@@ -114,8 +127,8 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, dim * cfg.mlp_ratio, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x = self.attn(self.norm1(x), residual=x)
+        return self.mlp(self.norm2(x), residual=x)
 
 
 class ViT(nn.Module):

@@ -661,3 +661,141 @@ def test_graphed_scan_reaches_a_frozen_ring(cuda, monkeypatch):
     assert FS.GRAPH_STATS["replays"] == replays + 15
     assert torch.equal(got["theta"][:, 0], want["theta"][:, 0])
     assert (got["theta"][:, 1:] - want["theta"][:, 1:]).abs().max() > 1e-6
+
+
+# ------------------------------------------------- ViT-H's 3xTF32 linears
+
+VIT_SHAPES = [("qkv", 3840, 1280), ("proj", 1280, 1280), ("fc1", 5120, 1280),
+              ("fc2", 1280, 5120)]
+
+
+def _vit_inputs(M, N, K, device, seed=0):
+    """An activation like a LayerNorm's output, a weight like the ViT's
+    (std 0.02), a bias and a residual, drawn on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, device=device, generator=g)
+    w = torch.randn(N, K, device=device, generator=g) * 0.02
+    b = torch.randn(N, device=device, generator=g) * 0.02
+    r = torch.randn(M, N, device=device, generator=g)
+    return x, w, b, r
+
+
+def _rel64(y, want64) -> float:
+    """Largest gap from the float64 result over its largest magnitude."""
+    return float((y.double() - want64).abs().max() / want64.abs().max())
+
+
+@pytest.mark.parametrize("M", [24_576, 2112, 192])
+@pytest.mark.parametrize("name,N,K", VIT_SHAPES)
+def test_vit_linear_kernel_is_float32_accurate(cuda, name, N, K, M):
+    """At the ViT's four shapes and the main path's row counts (128 crops,
+    a call's last chunk of 11, one crop), the kernel's worst error from the
+    float64 product is within 4x of cuBLAS's strict float32 SGEMM's."""
+    import tepose_tpu_torch.ops.vit_linear as VL
+
+    x, w, b, _ = _vit_inputs(M, N, K, cuda)
+    before = VL.LAUNCHES
+    y = VL.vit_linear(x, w, b)
+    torch.cuda.synchronize()
+    assert VL.LAUNCHES == before + 1
+    want = torch.nn.functional.linear(x.double(), w.double(), b.double())
+    sgemm = _rel64(torch.nn.functional.linear(x, w, b), want)
+    assert _rel64(y, want) <= 4 * sgemm, (_rel64(y, want), sgemm)
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "residual", "no_bias"])
+@pytest.mark.parametrize("bn", [128, 64])
+def test_vit_linear_epilogues_match_plain(cuda, epilogue, bn):
+    """Each epilogue with each tile width, on a ragged row count, against
+    the plain version in float64, within 4x of the plain version's own
+    float32 error."""
+    import tepose_tpu_torch.ops.vit_linear as VL
+
+    x, w, b, r = _vit_inputs(300, 1280, 1280, cuda, seed=1)
+    b = None if epilogue == "no_bias" else b
+    kw = {"gelu": {"gelu": True}, "residual": {"residual": r}}.get(epilogue,
+                                                                  {})
+    code = VL.EPILOGUES["gelu" if epilogue == "gelu" else
+                        "residual" if epilogue == "residual" else "bias"]
+    got = VL._operator()[1](x, w, b, kw.get("residual"), code, bn)
+    want = VL.vit_linear_reference(
+        x.double(), w.double(), None if b is None else b.double(),
+        gelu=epilogue == "gelu",
+        residual=r.double() if epilogue == "residual" else None)
+    plain = VL.vit_linear_reference(x, w, b, **kw)
+    assert _rel64(got, want) <= 4 * _rel64(plain, want)
+
+
+def test_vit_linear_refuses_bad_inputs(cuda):
+    import tepose_tpu_torch.ops.vit_linear as VL
+
+    x, w, b, r = _vit_inputs(192, 1280, 1280, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        VL.vit_linear(x.t().contiguous().t(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        VL.vit_linear(x, w, b, residual=r.t().contiguous().t())
+    with pytest.raises(TypeError, match="float32"):
+        VL.vit_linear(x.double(), w.double(), b.double())
+    with pytest.raises(TypeError, match="float32"):
+        VL.vit_linear(x, w.half(), b)
+    with pytest.raises(ValueError, match="16-byte"):
+        VL.vit_linear(torch.empty(192 * 1280 + 1, device=cuda)[1:].view(
+            192, 1280), w, b)
+    with pytest.raises(ValueError, match="one device"):
+        VL.vit_linear(x, w, b.cpu())
+    with pytest.raises(ValueError, match="multiples of 32"):
+        VL.vit_linear(x[:, :1000].contiguous(), w[:, :1000].contiguous(), b)
+    with pytest.raises(ValueError, match="tile width"):
+        VL.vit_linear(x, w[:96].contiguous(), b[:96].contiguous())
+    with pytest.raises(RuntimeError, match="forward only"):
+        VL.vit_linear(x, w.clone().requires_grad_(), b)
+
+
+def test_hmr2_chunk_launches_the_vit_kernel(cuda):
+    """One 128-crop chunk of `hmr2_forward` at the published widths makes
+    4 x 32 launches, one for each linear of each block."""
+    import tepose_tpu_torch.ops.vit_linear as VL
+    from tepose_tpu_torch.models.hmr2 import HMR2, hmr2_forward
+
+    model = HMR2(device="meta").to_empty(device=cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for t in [*model.parameters(), *model.buffers()]:
+            t.copy_(torch.randn(t.shape, device=cuda, generator=g) * 0.02)
+    smpl = synthetic_smpl_model(0, 6890, device=cuda)
+    images = torch.randn(128, 3, 256, 256, device=cuda, generator=g)
+    before = VL.LAUNCHES
+    with torch.inference_mode():
+        out = hmr2_forward(model, smpl, images)
+    torch.cuda.synchronize()
+    assert VL.LAUNCHES - before == 4 * 32
+    assert torch.isfinite(out["verts"]).all()
+
+
+def test_vit_linear_kernels_are_credited_to_the_span_around_them(cuda):
+    """The launch sits inside the operator `tepose::vit_linear_3xtf32`, so a
+    profiler credits its kernels (the W split and the product) to the host
+    events around the call: a span's device time holds them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import tepose_tpu_torch.ops.vit_linear as VL
+    from tepose_tpu_torch.utils.profiling import span
+
+    x, w, b, r = _vit_inputs(2112, 1280, 1280, cuda)
+    VL.vit_linear(x, w, b, residual=r)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with span("hmr2.backbone"):
+            VL.vit_linear(x, w, b, residual=r)
+        torch.cuda.synchronize()
+    names = []
+    stack = [e for e in prof.events() if e.name == "tepose:hmr2.backbone"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    assert len(stack) == 1
+    while stack:
+        e = stack.pop()
+        names += [k.name for k in e.kernels]
+        stack.extend(e.cpu_children)
+    assert any("vit_gemm_kernel" in n for n in names), names
+    assert any("split_tf32_kernel" in n for n in names), names

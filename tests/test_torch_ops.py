@@ -232,6 +232,7 @@ def test_kernel_build_command_and_atomic_install(monkeypatch, tmp_path):
         assert flag in cmd
     kernels.build("tepose_lbs", ["lbs_skinning.cu"])
     assert len(calls) == 1                           # built once
+    assert 0 <= kernels.BUILD_SECONDS["tepose_lbs"] < 60
 
 
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):
