@@ -621,7 +621,8 @@ def host_seconds(fn, reps: int = 3) -> list:
 
 
 def phase7_timings(p5: dict, card: str) -> dict:
-    from tepose_tpu_torch.streaming.engine import device_scope, upload
+    from tepose_tpu_torch.parallel.mesh import upload
+    from tepose_tpu_torch.precision import device_scope
     from tepose_tpu_torch.streaming.fast_scan import (
         fast_stream_scan, plain_stream_scan)
     from tepose_tpu_torch.streaming.live import LiveSession
@@ -1239,7 +1240,7 @@ def phase10_release(card: str, p5: dict, p8: dict) -> dict:
         convert_forward, convert_reverse)
     from tepose_tpu_torch.eval.evaluator import eval_rollout
     from tepose_tpu_torch.evaluate import synthetic_j_regressor
-    from tepose_tpu_torch.streaming.engine import device_scope
+    from tepose_tpu_torch.precision import device_scope
     from tepose_tpu_torch.utils import flops as F
     from tepose_tpu_torch.utils.profiling import trace
     from tepose_tpu_torch.weights import flatten_tree, load_checkpoint
@@ -1449,7 +1450,7 @@ def phase11_preprocess(card: str) -> dict:
         normalize_crop, resnet50_features)
     from tepose_tpu_torch.native import crop_normalize
     from tepose_tpu_torch.preprocess import pseudo_theta, threedpw
-    from tepose_tpu_torch.streaming.engine import device_scope
+    from tepose_tpu_torch.precision import device_scope
 
     def importable(name: str):
         try:
@@ -1828,7 +1829,7 @@ def phase12_parallel(card: str, p3: dict, p6: dict, p7: dict) -> dict:
         build_models, make_eval_batch, run_eval, synthetic_eval_data)
     from tepose_tpu_torch.parallel import distributed
     from tepose_tpu_torch.parallel.mesh import make_mesh
-    from tepose_tpu_torch.streaming.engine import device_scope
+    from tepose_tpu_torch.precision import device_scope
     from tepose_tpu_torch.streaming.live import LiveSession
 
     shutil.rmtree(PAR_DIR, ignore_errors=True)

@@ -94,9 +94,9 @@ from tepose_tpu_torch.models.smpl import SmplModel, synthetic_smpl_model
 from tepose_tpu_torch.models.tepose import (
     TePose, TePoseConfig, Vibe, VibeConfig)
 from tepose_tpu_torch.ops import lbs_skinning
-from tepose_tpu_torch.precision import strict_f32, tier_scope
-from tepose_tpu_torch.streaming.engine import (
-    StreamingEngine, device_scope, upload)
+from tepose_tpu_torch.parallel.mesh import upload
+from tepose_tpu_torch.precision import device_scope, strict_f32, tier_scope
+from tepose_tpu_torch.streaming.engine import StreamingEngine
 from tepose_tpu_torch.streaming.fast_scan import (
     fast_stream_scan, plain_stream_scan)
 from tepose_tpu_torch.train.loss import LossWeights

@@ -56,8 +56,9 @@ import torch
 from tepose_tpu_torch import bench
 from tepose_tpu_torch.models.backbone import FEAT_DIM, resnet50_init
 from tepose_tpu_torch.models.tepose import Vibe
-from tepose_tpu_torch.streaming.engine import (
-    ENGINE_OUTPUTS, StreamingEngine, device_scope, upload)
+from tepose_tpu_torch.parallel.mesh import upload
+from tepose_tpu_torch.precision import device_scope
+from tepose_tpu_torch.streaming.engine import ENGINE_OUTPUTS, StreamingEngine
 from tepose_tpu_torch.streaming.fast_scan import fast_stream_scan
 from tepose_tpu_torch.train.trainer import TrainHyper
 from tepose_tpu_torch.utils import flops as FL

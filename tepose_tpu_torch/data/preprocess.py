@@ -24,8 +24,9 @@ import torch
 from tepose_tpu_torch.models.backbone import (
     FEAT_DIM, ResNet50, normalize_crop, resnet50_features)
 from tepose_tpu_torch.native import crop_normalize
-from tepose_tpu_torch.parallel.mesh import gather_rows, replicate, row_blocks
-from tepose_tpu_torch.streaming.engine import device_scope, upload
+from tepose_tpu_torch.parallel.mesh import (
+    gather_rows, replicate, row_blocks, upload)
+from tepose_tpu_torch.precision import device_scope
 
 
 def read_rgb(path: str) -> np.ndarray:

@@ -212,6 +212,19 @@ def normalize_crop(x: torch.Tensor) -> torch.Tensor:
                         in enumerate(zip(IMAGENET_MEAN, IMAGENET_STD))], dim=1)
 
 
+def backbone_chunk(backbone: ResNet50, crops: torch.Tensor) -> torch.Tensor:
+    """float32 features (N, 2048) of one chunk of crops (N, 3, H, W).
+
+    uint8 crops are raw pixels, normalised here on the device (a quarter of
+    the bytes of float32 to upload); float crops must be normalised
+    already. The crops are cast to the backbone's dtype, so a bfloat16 copy
+    of the backbone runs its conv stack in bfloat16.
+    """
+    if crops.dtype == torch.uint8:
+        crops = normalize_crop(crops)
+    return backbone(crops.to(backbone.dtype)).float()
+
+
 def hmr_forward(backbone: ResNet50, regressor, smpl, images: torch.Tensor,
                 n_iter: int = 3, return_features: bool = False):
     """Single-frame HMR (spin.py:143-206): normalised crops (B, 3, 224,

@@ -9,7 +9,9 @@ and serving rows are independent):
   * `make_mesh` gives a `Mesh`: the devices in order and the axis name;
   * `shard_batch` splits every leaf's leading axis into contiguous row
     blocks, one a device, as `NamedSharding(P("data"))` does;
-  * `replicate` copies a module or a tensor tree onto each device;
+  * `replicate` copies a module or a tensor tree onto each device,
+    `upload` puts a host array on one without blocking, and
+    `check_device` checks that a module lies where a path runs;
   * each device runs its rows on its own replica, and outputs come back in
     row order (`gather_rows`).
 
@@ -130,6 +132,28 @@ def replicate(tree: Any, mesh: Mesh) -> List[Any]:
             return _place(x, dev)
         out.append(_map(tree, put))
     return out
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A host array on `device`. To a CUDA device it goes through pinned
+    memory without blocking: a blocking upload would wait for all the
+    work already queued on the device."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def check_device(device: torch.device, **modules) -> None:
+    """Raise unless every tensor of every module lies on `device`; a module
+    given as None is skipped."""
+    for name, m in modules.items():
+        if m is None:
+            continue
+        devs = {t.device for t in list(m.parameters()) + list(m.buffers())}
+        if devs - {device}:
+            raise ValueError(f"{name} has tensors on {sorted(map(str, devs))}"
+                             f"; the serving path runs on {device}")
 
 
 def gather_rows(parts: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -2,7 +2,9 @@
 own mechanisms.
 
   * `strict_f32`: full float32 for matmuls and cuDNN (TF32 off), the
-    parity contract of every entry point;
+    parity contract of every entry point; `device_scope` is the same
+    inside `torch.inference_mode()` for the inference paths, the caller's
+    flags restored after;
   * training compute (`TrainHyper.compute_dtype`, `train --precision`,
     `TRAIN.PRECISION`): "bfloat16" casts both nets' parameters and the
     window inputs to bf16 inside the differentiated step
@@ -117,3 +119,12 @@ def tier_scope(tier: str) -> Iterator[None]:
             yield
     finally:
         cuda.allow_tf32, cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def device_scope() -> Iterator[None]:
+    """The inference paths' scope: `torch.inference_mode()` in strict
+    float32 (`tier_scope("float32")`). Kernels are chosen at launch, so
+    restoring the caller's flags before the queued work has run is safe."""
+    with torch.inference_mode(), tier_scope("float32"):
+        yield

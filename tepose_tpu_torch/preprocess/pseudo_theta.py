@@ -28,10 +28,10 @@ from tepose_tpu_torch.data.db import read_joblib, write_db
 from tepose_tpu_torch.data.h5 import open_h5
 from tepose_tpu_torch.models.smpl import SmplModel
 from tepose_tpu_torch.models.tepose import Vibe, VibeConfig
+from tepose_tpu_torch.parallel.mesh import check_device, upload
+from tepose_tpu_torch.precision import device_scope
 from tepose_tpu_torch.preprocess.common import (
     add_gpu_arg, load_smpl)
-from tepose_tpu_torch.streaming.engine import (
-    check_device, device_scope, upload)
 from tepose_tpu_torch.weights import load_checkpoint, state_dict_from_jax_tree
 
 

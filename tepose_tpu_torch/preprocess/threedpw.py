@@ -33,10 +33,11 @@ from tepose_tpu_torch.ops.filters import (
     bbox_params_to_cxcywh, get_smooth_bbox_params)
 from tepose_tpu_torch.ops.geometry import (
     batch_rodrigues, rotmat_to_angle_axis)
+from tepose_tpu_torch.parallel.mesh import check_device
+from tepose_tpu_torch.precision import device_scope
 from tepose_tpu_torch.preprocess.common import (
     add_gpu_arg, concatenate_db, load_backbone,
     load_h36m_regressor, load_smpl)
-from tepose_tpu_torch.streaming.engine import check_device, device_scope
 
 VIS_THRESH = 0.3
 MIN_KP = 6

@@ -29,15 +29,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tepose_tpu_torch.models.backbone import ResNet50, to_serving_layout
+from tepose_tpu_torch.models.backbone import (
+    ResNet50, backbone_chunk, to_serving_layout)
 from tepose_tpu_torch.models.fast_encoder import (
     fast_encoder_window, project_frame_features)
 from tepose_tpu_torch.models.layers import gru_update
 from tepose_tpu_torch.models.smpl import SmplModel
 from tepose_tpu_torch.models.tepose import TePose, Vibe
-from tepose_tpu_torch.parallel.mesh import replicate, row_blocks
-from tepose_tpu_torch.streaming.engine import (
-    ENGINE_PRESETS, _backbone_chunk, check_device, device_scope, upload)
+from tepose_tpu_torch.parallel.mesh import (
+    check_device, replicate, row_blocks, upload)
+from tepose_tpu_torch.precision import device_scope
+from tepose_tpu_torch.streaming.engine import ENGINE_PRESETS
 
 LIVE_OUTPUTS = ("theta", "verts", "kp_2d", "kp_3d")
 
@@ -106,7 +108,7 @@ class _Shard:
                                           carry["theta_ring"]),
                 "age": torch.where(reset, c0["age"], carry["age"]),
             }
-        feat = _backbone_chunk(self.backbone, x) if x.dim() == 4 else x
+        feat = backbone_chunk(self.backbone, x) if x.dim() == 4 else x
 
         # causal VIBE bootstrap step (the output of frames t < S-1)
         enc = self.vibe.encoder

@@ -140,7 +140,7 @@ def run_pass(models, data: Dict[str, dict], plan: List[tuple],
     (each ends in its readback) and the pass's counts."""
     import tepose_tpu_torch.ops.lbs_skinning as lbs
     from tepose_tpu_torch.evaluate import rollout_chunk
-    from tepose_tpu_torch.streaming.engine import device_scope
+    from tepose_tpu_torch.precision import device_scope
 
     cuda = torch.device(device).type == "cuda"
     if cuda:
@@ -168,7 +168,7 @@ def sweep(models, data: Dict[str, dict], points: List[tuple], device,
     """Every (max_b, bucket) of `points` (bucket None: no bucket), two
     passes in turns; rows by `point_name`."""
     from tepose_tpu_torch.evaluate import plan_eval_batches, rollout_chunk
-    from tepose_tpu_torch.streaming.engine import device_scope
+    from tepose_tpu_torch.precision import device_scope
 
     lengths = {n: len(d["features"]) for n, d in data.items()}
     useful = sum(n for n in lengths.values() if n >= SEQLEN)

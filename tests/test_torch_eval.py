@@ -366,7 +366,25 @@ def test_never_imports_jax():
         assert proc.returncode == 0, (blocked, proc.stderr)
 
 
-SMALL_SPEC = dict(golden_writer.FULL_SPEC, hidden_size=32, vibe_hidden_size=32,
+@pytest.mark.parametrize("module", [
+    "data.preprocess", "preprocess.threedpw", "preprocess.pseudo_theta",
+    "tune_eval_batching"])
+def test_db_builders_do_not_load_the_engine(module):
+    """The feature extractor, the DB builders and the batching tuner take
+    their device helpers from below the serving engine: importing one loads
+    neither `streaming.engine` nor HMR 2.0."""
+    code = (
+        "import importlib, sys\n"
+        "importlib.import_module('tepose_tpu_torch.' + sys.argv[1])\n"
+        "bad = [m for m in ('tepose_tpu_torch.streaming.engine',\n"
+        "                   'tepose_tpu_torch.models.hmr2') if m in sys.modules]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code, module], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+SMALL_SPEC =dict(golden_writer.FULL_SPEC, hidden_size=32, vibe_hidden_size=32,
                   num_verts=700, min_len=22, max_len=24)
 
 

@@ -5,8 +5,8 @@ blocks of 4 heads, a decoder of width 64 with 2 layers of 4 heads of 32,
 64 x 64 crops read at columns 8:-8 (the published 32:-32 scaled), 64
 SMPL vertices, the decoders' Xavier gain 1 so the image reaches every
 output. Also: the published widths on the meta device, the per-frame
-route's counts and spans, and the TePose route left bit for bit as it was
-(`tools/make_torch_engine_golden.py`).
+route's counts and spans, and both engine routes held bit for bit to the
+golden of `tools/make_torch_engine_golden.py`.
 
 No JAX: HMR 2.0 has no counterpart in the JAX package.
 """
@@ -33,14 +33,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(TESTS), "tools"))
 import make_torch_engine_golden as golden  # noqa: E402
 import plain_hmr2 as P  # noqa: E402
 
-CFG = HMR2Config(image_size=64, crop_margin=8,
-                 vit=ViTConfig(img_size=(64, 48), embed_dim=64, depth=2,
-                               num_heads=4),
-                 dim=64, depth=2, heads=4, dim_head=32, mlp_dim=64)
+CFG = golden.hmr2_config()
 PLAIN = dict(P.CONFIG, image_size=64, crop_margin=8, embed_dim=64, depth=2,
              num_heads=4, dim=64, head_depth=2, heads=4, dim_head=32,
              mlp_dim=64)
-LENGTHS = (1, 5, 9, 2, 3)
+LENGTHS = golden.LENGTHS
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -55,11 +52,7 @@ def _two_threads():
 
 @pytest.fixture(scope="module")
 def m():
-    model = HMR2(CFG, generator=torch.Generator().manual_seed(0)).eval()
-    head = model.smpl_head
-    with torch.no_grad():
-        for dec in (head.decpose, head.decshape, head.deccam):
-            dec.weight.mul_(1.0 / H.DECODER_GAIN)   # Xavier gain 1
+    model = golden.hmr2_model()
     smpl = synthetic_smpl_model(0, 64)
     rs = np.random.RandomState(5)
     crops = [(rs.rand(n, 3, 64, 64) * 255).astype(np.uint8) for n in LENGTHS]
@@ -354,7 +347,7 @@ def test_per_frame_rejections(m):
         _engine(m, preset="serving")
 
 
-# ----------------------------------------------------- the TePose route
+# ------------------------------------------------------ the golden routes
 
 
 @pytest.fixture(scope="module")
@@ -365,10 +358,13 @@ def route_golden():
 
 
 @pytest.mark.parametrize("call", ["fused", "fallback", "features",
-                                  "extract"])
-def test_tepose_route_is_bit_identical(route_golden, call):
-    """The TePose route's outputs, bit for bit, as the engine gave them
-    before it gained the per-frame route."""
+                                  "extract", "fused_mesh",
+                                  "features_mesh_f16", "extract_mesh",
+                                  "frames", "frames_mesh"])
+def test_engine_route_is_bit_identical(route_golden, call):
+    """Both routes' outputs, bit for bit, as the engine gave them: the
+    TePose route's first four calls from before it gained the per-frame
+    route, the rest from before its two routes shared one pipeline."""
     want, got = route_golden
     keys = sorted(k for k in want if k.startswith(call + "/"))
     assert keys and keys == sorted(k for k in got if k.startswith(call + "/"))

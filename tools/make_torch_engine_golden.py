@@ -1,17 +1,22 @@
 #!/usr/bin/env python
-"""Write the bit-level golden of `StreamingEngine`'s TePose route on the CPU.
+"""Write the bit-level golden of `StreamingEngine`'s two routes on the CPU.
 
 The engine serves two kinds of model: TePose through its window scan, and
-per-frame models (HMR 2.0). This golden pins the TePose route's outputs
-bit for bit, so a change to the engine that is meant to leave that route
-alone can be shown to: `tests/test_torch_hmr2.py` rebuilds the same
-modules and inputs from seeds and compares with `np.array_equal`.
+per-frame models (HMR 2.0). This golden pins both routes' outputs bit for
+bit, so a change to the engine that is meant to leave them alone can be
+shown to: `tests/test_torch_hmr2.py` rebuilds the same modules and inputs
+from seeds and compares with `np.array_equal`.
 
-Everything is the port's own at tests/test_torch_spans.py's size (TePose
-and VIBE 1 x 16, 64 vertices, 64 x 64 crops), float32 on the CPU with two
-intra-op threads, through four calls: the fused crop path over two length
-buckets, the two-stage fallback, the features path with a pseudo-theta,
-and `extract_features_multi`.
+Everything is the port's own, float32 on the CPU with two intra-op
+threads. The TePose route runs at tests/test_torch_spans.py's size (TePose
+and VIBE 1 x 16, 64 vertices, 64 x 64 crops) through four calls on one
+device: the fused crop path over two length buckets, the two-stage
+fallback, the features path with a pseudo-theta, and
+`extract_features_multi`; then the crop, features and extract calls again
+on a mesh of two CPU devices, the features call with float16 outputs. The
+per-frame route runs tests/test_torch_hmr2.py's small HMR 2.0
+(`hmr2_model`) over tracklets of `LENGTHS` frames in super-chunks of 7, so
+that one tracklet straddles two, on one device and on the two-device mesh.
 
   python tools/make_torch_engine_golden.py      # writes GOLDEN_PATH
 """
@@ -32,6 +37,35 @@ if REPO not in sys.path:
 GOLDEN_PATH = os.path.join(REPO, "tests", "golden",
                            "torch_port_engine_tepose_f32.npz")
 THREADS = 2
+# the per-frame route's tracklet lengths
+LENGTHS = (1, 5, 9, 2, 3)
+
+
+def hmr2_config():
+    """HMR 2.0 at a small size: ViT width 64, 2 blocks of 4 heads, a
+    decoder of width 64 with 2 layers of 4 heads of 32, 64 x 64 crops read
+    at columns 8:-8."""
+    from tepose_tpu_torch.models.hmr2 import HMR2Config
+    from tepose_tpu_torch.models.vit import ViTConfig
+
+    return HMR2Config(image_size=64, crop_margin=8,
+                      vit=ViTConfig(img_size=(64, 48), embed_dim=64, depth=2,
+                                    num_heads=4),
+                      dim=64, depth=2, heads=4, dim_head=32, mlp_dim=64)
+
+
+def hmr2_model():
+    """`hmr2_config`'s model from seed 0, the decoders' Xavier gain 1 so
+    the image reaches every output."""
+    from tepose_tpu_torch.models import hmr2 as H
+
+    model = H.HMR2(hmr2_config(),
+                   generator=torch.Generator().manual_seed(0)).eval()
+    head = model.smpl_head
+    with torch.no_grad():
+        for dec in (head.decpose, head.decshape, head.deccam):
+            dec.weight.mul_(1.0 / H.DECODER_GAIN)
+    return model
 
 
 def setup() -> Dict:
@@ -55,16 +89,30 @@ def setup() -> Dict:
         crops=[u8(8), u8(20)], long=[u8(8), u8(44), u8(20)],
         feats=[rs.randn(n, 2048).astype(np.float32) * 0.1
                for n in (14, 14, 30)],
-        pseu=rs.randn(5, 85).astype(np.float32) * 0.1)
+        pseu=rs.randn(5, 85).astype(np.float32) * 0.1,
+        hmr2=hmr2_model(), frames=[u8(n) for n in LENGTHS])
 
 
 def outputs(s: Dict) -> Dict[str, np.ndarray]:
-    """Every array the four calls return, under `<call>/<tracklet>/<key>`."""
+    """Every array the calls return, under `<call>/<tracklet>/<key>`."""
+    from tepose_tpu_torch.parallel.mesh import make_mesh
     from tepose_tpu_torch.streaming.engine import StreamingEngine
+
+    mesh = make_mesh(devices=["cpu", "cpu"])
 
     def engine(**kw):
         return StreamingEngine(s["smpl"], s["gen"], s["vibe"], s["bb"],
                                crop_batch=8, window_bucket=16, **kw)
+
+    def extract(**kw):
+        return [{"feats": f} for f in
+                engine(max_frames_per_call=4, **kw).extract_features_multi(
+                    [s["crops"][0][:5], s["crops"][1][:6]])]
+
+    def frames(**kw):
+        return StreamingEngine(s["smpl"], s["hmr2"], crop_batch=4,
+                               max_frames_per_call=7, **kw
+                               ).run_tracklets_from_crops(s["frames"])
 
     calls: Dict[str, List] = {
         "fused": engine().run_tracklets_from_crops(s["crops"]),
@@ -72,9 +120,15 @@ def outputs(s: Dict) -> Dict[str, np.ndarray]:
             s["long"]),
         "features": engine().run_tracklets(s["feats"],
                                            [None, s["pseu"], None]),
-        "extract": [{"feats": f} for f in
-                    engine(max_frames_per_call=4).extract_features_multi(
-                        [s["crops"][0][:5], s["crops"][1][:6]])],
+        "extract": extract(),
+        "fused_mesh": engine(mesh=mesh).run_tracklets_from_crops(s["crops"]),
+        "features_mesh_f16": engine(
+            mesh=mesh, outputs=("theta", "kp_3d"),
+            output_dtype=torch.float16).run_tracklets(
+                s["feats"], [None, s["pseu"], None]),
+        "extract_mesh": extract(mesh=mesh),
+        "frames": frames(),
+        "frames_mesh": frames(mesh=mesh),
     }
     return {f"{name}/{i}/{k}": v for name, outs in calls.items()
             for i, out in enumerate(outs) for k, v in out.items()}
