@@ -16,34 +16,50 @@ tracklets' frames only (never across the blocks), its VIBE bootstrap and
 its scan, and the outputs come back in tracklet order. The two-stage
 feature path splits its crops the same way. No collectives.
 
-Per length bucket the engine uploads the tracklets' frames, runs the
-ResNet-50 in `crop_batch` chunks (a Python loop where JAX had `lax.map`),
-the VIBE bootstrap over the first window and the lane-batched
-theta-feedback scan (`fast_stream_scan`), and starts the outputs' copy to
-pinned host memory. CUDA launches are asynchronous, so the buckets form a
-depth-2 pipeline (`_pipeline`): bucket N+1 is dispatched before bucket N
-is drained, and the drain (`_drain`) waits on an event recorded after
-bucket N's copies only. Every SMPL forward skins through the CUDA LBS
-kernel on a CUDA device.
+Per length bucket the engine stages the tracklets' frames to the device
+and runs the ResNet-50 over them in `crop_batch` chunks (a Python loop
+where JAX had `lax.map`), then the VIBE bootstrap over the first window
+and the lane-batched theta-feedback scan (`fast_stream_scan`), and starts
+the outputs' copy to pinned host memory. CUDA launches are asynchronous,
+so the buckets form a depth-2 pipeline (`_pipeline`): bucket N+1 is
+dispatched before bucket N is drained, and the drain (`_drain`) waits on
+an event recorded after bucket N's copies only. Every SMPL forward skins
+through the CUDA LBS kernel on a CUDA device.
 
-Both routes and the feature path stage their host arrays through two
-helpers: `_pack` is the one concatenation of crops, and `_upload` the one
-upload, each under its span. Outputs other than theta are cast to
-`output_dtype` in one place (`_cast`).
+Crops reach the device one backbone chunk at a time (`_staged`): the host
+copies a chunk's frames straight from the tracklets' arrays (a chunk may
+span several) into a slot of the device's staging ring (`_Ring`: a few
+host buffers, pinned for a CUDA device, allocated on first use and grown
+only for a larger chunk), queues the slot's copy to the device on a copy
+stream into a tensor of its own, and the chunk's backbone waits on that
+copy alone. So the card starts on the first chunk while the host stages
+the rest, and a slot is refilled once the copy that last read it has run,
+never waiting on the backbone. On a mesh the replicas' chunks are staged
+in turns (`_round_robin`), so every device starts after its first chunk.
+On the CPU the same code copies synchronously. `STAGING_STATS`
+counts the chunks, their bytes, the host's waits for a slot and the
+ring's allocations. The per-frame route and the feature path stage the
+same way; the small arrays (pseudo-thetas, features) go through
+`_upload`. Outputs other than theta are cast to `output_dtype` in one
+place (`_cast`).
 
 Under a profiler each public call is one `tepose:engine.run` span, and the
 work inside it falls under `engine.pack` (host assembly of a bucket's
-input), `engine.upload`, `engine.features` (ResNet-50), `engine.boot`,
-`engine.scan`, `engine.readback` (the copies' launch), `engine.wait` (the
-drain's event wait) and `engine.unpack` (the per-tracklet host arrays):
-one span each a bucket or super-chunk, none inside a loop over windows or
-backbone chunks (`utils.profiling.span`).
+input, one span a pseudo-theta batch, a features batch or a staged
+chunk), `engine.upload` (one a small array's upload or a chunk's copy
+launch), `engine.features` (ResNet-50, one a chunk, then the chunks'
+join and the features' placement), `engine.boot`, `engine.scan`, `engine.readback` (the copies'
+launch), `engine.wait` (the drain's event wait) and `engine.unpack` (the
+per-tracklet host arrays): one span each a bucket or super-chunk, or a
+backbone chunk, none inside a loop over windows (`utils.profiling.span`).
+What is left of the host copies in series with the card is the drain's
+`engine.unpack` and the first chunk's staging.
 
 The model it is given picks the route. A `TePose` (with its VIBE
 bootstrap and a ResNet-50) takes the windowed route above; an `HMR2`
 (`models/hmr2.py`) takes the per-frame route (`_run_frames`): only the
-tracklets' own crops, flattened across tracklets with no padding, are
-uploaded in super-chunks of at most `max_frames_per_call` frames and run
+tracklets' own crops, flattened across tracklets with no padding, go in
+super-chunks of at most `max_frames_per_call` frames, each staged and run
 `crop_batch` at a time through the ViT and the head (`hmr2_forward`, under
 the spans `hmr2.backbone` and `hmr2.head`), the super-chunks going
 through the same pipeline, readback and drain. It takes
@@ -60,7 +76,8 @@ work meanwhile sees them off.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +101,15 @@ ENGINE_OUTPUTS = ("theta", "verts", "kp_3d", "kp_2d")
 #                    float32), the full output set;
 #   serving-joints - the same with the joints-only outputs (theta, kp_3d).
 ENGINE_PRESETS = ("parity", "serving", "serving-joints")
+
+# Crop chunks staged to a device and their bytes, how often the host found
+# the next ring slot still being copied from and the seconds it waited, and
+# the ring buffers allocated, since the process started (`_Ring`).
+STAGING_STATS = {"chunks": 0, "bytes": 0, "slot_waits": 0,
+                 "slot_wait_s": 0.0, "ring_allocs": 0}
+# host buffers in a device's staging ring: one being copied to the device,
+# one being filled, one to spare
+RING_SLOTS = 3
 
 
 def apply_engine_preset(preset, backbone_dtype, output_dtype, outputs):
@@ -120,6 +146,90 @@ def _check_same_dtype(crops_list) -> None:
         raise ValueError(
             f"mixed crop dtypes {sorted(dtypes)}: pass all-uint8 (raw) "
             "or all-float32 (ImageNet-normalised) tracklets")
+
+
+def _segments(starts, a: int, b: int) -> Iterator[Tuple[int, int, int]]:
+    """(i, lo, hi): array i's flat frames [lo, hi) inside [a, b), in order,
+    for arrays laid end to end from the flat offsets `starts`."""
+    i = int(np.searchsorted(starts, a, side="right")) - 1
+    while i < len(starts) - 1 and starts[i] < b:
+        lo, hi = max(starts[i], a), min(starts[i + 1], b)
+        if hi > lo:
+            yield i, int(lo), int(hi)
+        i += 1
+
+
+def _chunks(pieces, size: int) -> Iterator[list]:
+    """`pieces` ((array, lo, hi): frames lo:hi of an array, in order)
+    regrouped into chunks of `size` frames, the last one shorter."""
+    chunk, room = [], size
+    for arr, lo, hi in pieces:
+        while lo < hi:
+            k = min(room, hi - lo)
+            chunk.append((arr, lo, lo + k))
+            lo, room = lo + k, room - k
+            if not room:
+                yield chunk
+                chunk, room = [], size
+    if chunk:
+        yield chunk
+
+
+class _Ring:
+    """A device's staging ring: `RING_SLOTS` host byte buffers, pinned for
+    a CUDA device, that crop chunks pass through on their way there, and
+    the stream that copies them.
+
+    A slot is allocated on first use and again only for a larger chunk; it
+    is refilled once the event of the copy that last read it has passed,
+    so the host waits on a copy, never on the work queued after it. On the
+    CPU the buffers are plain and each copy is done when `send` returns."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.slots: List[Optional[torch.Tensor]] = [None] * RING_SLOTS
+        self.events: List[Optional[torch.cuda.Event]] = [None] * RING_SLOTS
+        self.next = 0
+
+    def take(self, nbytes: int) -> Tuple[int, torch.Tensor]:
+        """The next slot, at least `nbytes` long, once no copy reads it."""
+        i = self.next
+        self.next = (i + 1) % RING_SLOTS
+        event = self.events[i]
+        if event is not None and not event.query():
+            t0 = time.perf_counter()
+            event.synchronize()
+            STAGING_STATS["slot_waits"] += 1
+            STAGING_STATS["slot_wait_s"] += time.perf_counter() - t0
+        if self.slots[i] is None or self.slots[i].numel() < nbytes:
+            self.slots[i] = torch.empty(nbytes, dtype=torch.uint8,
+                                        pin_memory=self.cuda)
+            STAGING_STATS["ring_allocs"] += 1
+        return i, self.slots[i]
+
+    def send(self, i: int, host: torch.Tensor) -> torch.Tensor:
+        """Slot i's chunk `host` copied into a new tensor on the device. On
+        a CUDA device the tensor is allocated and filled on the copy
+        stream, `record_stream` keeps its memory from being handed out
+        again before the compute stream's work queued until its release
+        has run, and the compute stream waits on the copy's event before
+        anything queued after it reads the tensor. On the CPU a plain copy
+        out of the slot."""
+        if not self.cuda:
+            return host.clone()
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.stream):
+            out = torch.empty(host.shape, dtype=host.dtype,
+                              device=self.device)
+            out.copy_(host, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        out.record_stream(compute)
+        compute.wait_event(event)
+        self.events[i] = event
+        return out
 
 
 class _Replica:
@@ -181,7 +291,8 @@ class StreamingEngine:
         # both dtypes (chip_smoke.py phase 7 measures both)
         self.crop_batch = crop_batch
         self.window_bucket = window_bucket
-        # bounds one upload and one bucket's frames (~600 MB of u8 crops)
+        # bounds the frames of one bucket or super-chunk on the device (~600
+        # MB of u8 crops)
         self.max_frames_per_call = max_frames_per_call
         self.backbone_dtype = backbone_dtype
         self.backbone = (None if backbone is None
@@ -196,6 +307,8 @@ class StreamingEngine:
         self._replicas = [_Replica(*(modules if mesh is None else r))
                           for r in ([None] if mesh is None
                                     else replicate(modules, mesh))]
+        # one staging ring a device, shared by the replicas on it
+        self._rings: Dict[torch.device, _Ring] = {}
 
     @property
     def timings(self) -> Dict[str, float]:
@@ -215,26 +328,81 @@ class StreamingEngine:
 
     # ------------------------------------------------------------- staging
 
-    def _pack(self, slices: List[np.ndarray]) -> Optional[np.ndarray]:
-        """Tracklet slices of crops concatenated in order on the host, None
-        for no slice: the engine's one concatenation of crops."""
-        with span("engine.pack"):
-            return np.concatenate(slices) if slices else None
-
     def _upload(self, *pairs) -> List[Optional[torch.Tensor]]:
         """Each (r, host array) on replica r's device (None stays None),
-        under one `engine.upload` span: the engine's one upload."""
+        under one `engine.upload` span: the upload of the small arrays."""
         with span("engine.upload"):
             return [None if a is None else upload(a, self._replicas[r].device)
                     for r, a in pairs]
 
-    def _upload_rows(self, flat: np.ndarray) -> List[Tuple[int, torch.Tensor]]:
-        """(r, block) for `flat`'s rows split into contiguous blocks, one a
-        replica, each uploaded to its replica's device; no empty block."""
-        blocks = [(r, rows) for r, rows in enumerate(split_rows(
-            len(flat), len(self._replicas))) if rows.stop > rows.start]
-        xs = self._upload(*[(r, flat[rows]) for r, rows in blocks])
-        return [(r, x) for (r, _), x in zip(blocks, xs)]
+    def _staged(self, r: int, pieces) -> Iterator[torch.Tensor]:
+        """Replica r's crops of `pieces` ((array, lo, hi): frames lo:hi of
+        a tracklet's array, in order) on its device, one `crop_batch` chunk
+        at a time: each chunk's frames are copied into a slot of the
+        device's ring under `engine.pack`, and the slot's copy to the
+        device is queued under `engine.upload`, before the chunk is
+        yielded. Every frame is copied once into the ring, whatever the
+        arrays' layout; on the CPU the slot is then copied into the chunk's
+        own tensor, as the card's copy does."""
+        pieces = [(np.asarray(a), lo, hi) for a, lo, hi in pieces if hi > lo]
+        if not pieces:
+            return
+        first = pieces[0][0]
+        frame, dtype = first.shape[1:], first.dtype
+        if any(a.shape[1:] != frame for a, _, _ in pieces):
+            raise ValueError(f"crops of shapes "
+                             f"{sorted({a.shape[1:] for a, _, _ in pieces})}"
+                             f": every frame must have one shape")
+        device = self._replicas[r].device
+        ring = self._rings.get(device)
+        if ring is None:
+            ring = self._rings[device] = _Ring(device)
+        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        frame_bytes = int(np.prod(frame, dtype=np.int64)) * dtype.itemsize
+        for chunk in _chunks(pieces, self.crop_batch):
+            m = sum(hi - lo for _, lo, hi in chunk)
+            nbytes = m * frame_bytes
+            with span("engine.pack"):
+                i, slot = ring.take(nbytes)
+                host = slot[:nbytes].view(tdtype).view((m,) + frame)
+                out, o = host.numpy(), 0
+                for arr, lo, hi in chunk:
+                    out[o:o + hi - lo] = arr[lo:hi]
+                    o += hi - lo
+            with span("engine.upload"):
+                x = ring.send(i, host)
+            STAGING_STATS["chunks"] += 1
+            STAGING_STATS["bytes"] += nbytes
+            yield x
+
+    def _round_robin(self, blocks, run) -> List[list]:
+        """`run(r, chunk)` on each chunk that `_staged` stages of each (r,
+        pieces) in `blocks`, chunk k of every block before chunk k+1 of
+        any, so that on a mesh no device waits for the host to stage
+        another's whole block: each block's results, in order."""
+        todo = [(j, r, self._staged(r, pieces))
+                for j, (r, pieces) in enumerate(blocks)]
+        done: List[list] = [[] for _ in blocks]
+        while todo:
+            left = []
+            for j, r, chunks in todo:
+                x = next(chunks, None)
+                if x is not None:
+                    done[j].append(run(r, x))
+                    left.append((j, r, chunks))
+            todo = left
+        return done
+
+    def _row_pieces(self, arrays, starts, a: int, b: int) -> list:
+        """(r, pieces) for the flat frames [a, b) of `arrays` (laid end to
+        end from the offsets `starts`) split into contiguous blocks, one a
+        replica, none empty; pieces as `_staged` takes them."""
+        return [(r, [(arrays[i], lo - starts[i], hi - starts[i])
+                     for i, lo, hi in _segments(starts, a + rows.start,
+                                                a + rows.stop)])
+                for r, rows in enumerate(split_rows(b - a,
+                                                    len(self._replicas)))
+                if rows.stop > rows.start]
 
     def _cast(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Every output but theta in `output_dtype`, where one is set."""
@@ -322,13 +490,24 @@ class StreamingEngine:
                 "serves precomputed features (run_tracklet/run_tracklets); "
                 "pass a ResNet50 to run crops")
 
+    def _feature_chunk(self, r: int, x: torch.Tensor) -> torch.Tensor:
+        """Replica r's backbone over one chunk of its device's crops."""
+        with span("engine.features"):
+            return backbone_chunk(self._replicas[r].backbone, x)
+
+    @staticmethod
+    def _join(parts: List[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A block's chunks' features in order, None for no chunk."""
+        if not parts:
+            return None
+        with span("engine.features"):
+            return torch.cat(parts)
+
     def _features(self, crops: torch.Tensor, r: int = 0) -> torch.Tensor:
         """Replica r's backbone over its device's crops (N, 3, H, W),
         crop_batch at a time."""
-        B = self.crop_batch
-        backbone = self._replicas[r].backbone
-        return torch.cat([backbone_chunk(backbone, crops[i:i + B])
-                          for i in range(0, len(crops), B)])
+        return self._join([self._feature_chunk(r, x)
+                           for x in crops.split(self.crop_batch)])
 
     def extract_features(self, crops: np.ndarray) -> np.ndarray:
         """(N, 3, H, W) crops -> (N, 2048) features. float32 crops must be
@@ -346,21 +525,21 @@ class StreamingEngine:
             if not crops_list:
                 return []
             _check_same_dtype(crops_list)
-            flat = self._pack(crops_list)
-            feats = np.empty((len(flat), FEAT_DIM), np.float32)
-            for i in range(0, len(flat), self.max_frames_per_call):
-                sub = flat[i:i + self.max_frames_per_call]
+            starts = np.cumsum([0] + [len(c) for c in crops_list])
+            n, M = int(starts[-1]), self.max_frames_per_call
+            feats = np.empty((n, FEAT_DIM), np.float32)
+            for a in range(0, n, M):
+                b = min(a + M, n)
                 with device_scope():
                     # a contiguous block of the crops a replica, all queued
                     # before the first is read back
-                    xs = self._upload_rows(sub)
-                    with span("engine.features"):
-                        parts = [self._features(x, r) for r, x in xs]
+                    parts = [self._join(p) for p in self._round_robin(
+                        self._row_pieces(crops_list, starts, a, b),
+                        self._feature_chunk)]
                     with span("engine.readback"):
-                        feats[i:i + len(sub)] = gather_rows(parts).numpy()
+                        feats[a:b] = gather_rows(parts).numpy()
             with span("engine.unpack"):
-                return np.split(feats,
-                                np.cumsum([len(c) for c in crops_list])[:-1])
+                return np.split(feats, starts[1:-1])
 
     # -------------------------------------------------------------- stream
 
@@ -461,24 +640,26 @@ class StreamingEngine:
         _check_same_dtype(crops_list)
 
         def dispatch(idxs, T_pad, blocks, pseu):
+            thetas = [self._upload((r, pseu[rows]))[0]
+                      for r, rows in enumerate(blocks)]
+            reals = self._round_robin(
+                [(r, [(crops_list[i], 0, len(crops_list[i]))
+                      for i in idxs[rows]])   # this replica's real tracklets
+                 for r, rows in enumerate(blocks)], self._feature_chunk)
             outs = []
             for r, rows in enumerate(blocks):
-                mine = idxs[rows]            # this replica's real tracklets
-                flat = self._pack([crops_list[i] for i in mine])
-                crops, theta_pseu = self._upload((r, flat), (r, pseu[rows]))
+                mine, real = idxs[rows], self._join(reals[r])
                 with span("engine.features"):
                     feats = torch.zeros(
                         (rows.stop - rows.start, T_pad, FEAT_DIM),
                         device=self._replicas[r].device)
-                    if crops is not None:
-                        real = self._features(crops, r)
-                        ofs = 0
-                        for b, i in enumerate(mine):
-                            n = len(crops_list[i])
-                            feats[b, :n] = real[ofs:ofs + n]
-                            ofs += n
+                    ofs = 0
+                    for b, i in enumerate(mine):
+                        n = len(crops_list[i])
+                        feats[b, :n] = real[ofs:ofs + n]
+                        ofs += n
                 outs.append(self._boot_and_scan(
-                    feats, theta_pseu, T_pad - self.model_cfg.seqlen + 1, r))
+                    feats, thetas[r], T_pad - self.model_cfg.seqlen + 1, r))
             return outs
 
         def fallback(idxs, theta_pseu_list):
@@ -493,18 +674,18 @@ class StreamingEngine:
 
     # ----------------------------------------------------------- per frame
 
-    def _frames_on(self, crops: torch.Tensor, r: int = 0
-                   ) -> Dict[str, torch.Tensor]:
-        """Replica r's per-frame model over its device's crops (N, 3, S, S),
-        `crop_batch` at a time; uint8 crops are normalised on the device,
-        chunk by chunk."""
+    def _frame_chunk(self, r: int, x: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+        """Replica r's per-frame model over one chunk of its device's crops
+        (N_k, 3, S, S); uint8 crops are normalised on the device."""
         rep = self._replicas[r]
-        parts = []
-        for i in range(0, len(crops), self.crop_batch):
-            x = crops[i:i + self.crop_batch]
-            out = hmr2_forward(rep.tepose, rep.smpl, normalize_crop(x)
-                               if x.dtype == torch.uint8 else x)
-            parts.append({k: out[k] for k in self.outputs})
+        out = hmr2_forward(rep.tepose, rep.smpl, normalize_crop(x)
+                           if x.dtype == torch.uint8 else x)
+        return {k: out[k] for k in self.outputs}
+
+    def _frames_on(self, parts: List[Dict[str, torch.Tensor]]
+                   ) -> Dict[str, torch.Tensor]:
+        """A block's chunks' outputs joined in order and cast."""
         return self._cast(parts[0] if len(parts) == 1 else {
             k: torch.cat([p[k] for p in parts]) for k in self.outputs})
 
@@ -526,21 +707,14 @@ class StreamingEngine:
         n, M = int(starts[-1]), self.max_frames_per_call
         results: List[Dict[str, np.ndarray]] = [{} for _ in crops_list]
 
-        def tracklets(a, b):
-            """(i, lo, hi): tracklet i's flat frames [lo, hi) in [a, b)."""
-            i = int(np.searchsorted(starts, a, side="right")) - 1
-            while i < len(crops_list) and starts[i] < b:
-                yield i, max(starts[i], a), min(starts[i + 1], b)
-                i += 1
-
         def dispatch(unit):
-            flat = self._pack([crops_list[i][lo - starts[i]:hi - starts[i]]
-                               for i, lo, hi in tracklets(*unit)])
-            return [self._frames_on(x, r) for r, x in self._upload_rows(flat)]
+            return [self._frames_on(parts) for parts in self._round_robin(
+                self._row_pieces(crops_list, starts, *unit),
+                self._frame_chunk)]
 
         def place(unit, host):
             a, b = unit
-            for i, lo, hi in tracklets(a, b):
+            for i, lo, hi in _segments(starts, a, b):
                 for k, v in host.items():
                     v = v.numpy()
                     if k not in results[i]:

@@ -455,6 +455,69 @@ def test_engine_on_two_shards_of_the_card(cuda):
     assert LS.LAUNCHES > before
 
 
+def test_engine_staging_ring_on_the_card(cuda, monkeypatch):
+    """Crops staged chunk by chunk through the pinned ring (`_staged`) give
+    the card's own outputs bit for bit with each replica block staged
+    whole as the engine once did (concatenated, pinned and uploaded in one
+    copy, then cut into chunks on the card), on the TePose route, its
+    feature path and the per-frame route, each called twice: the ring
+    allocates nothing on the second call, and the host's waits for a slot
+    are counted."""
+    import make_torch_engine_golden as eg
+    import make_torch_serve_golden as sg
+    from tepose_tpu_torch.parallel.mesh import upload
+    from tepose_tpu_torch.streaming import engine as E
+
+    setup = sg.port_setup(SERVE_SPEC, cuda)
+    # lengths 7 and 12 in one bucket: 19 frames, chunks of 4 straddling
+    tepose = sg.port_engine(setup, crop_batch=4)
+    hmr2 = E.StreamingEngine(
+        synthetic_smpl_model(0, 64, device=cuda), eg.hmr2_model().to(cuda),
+        crop_batch=4, max_frames_per_call=7)
+    rs = np.random.RandomState(4)
+    frames = [(rs.rand(n, 3, 64, 64) * 255).astype(np.uint8)
+              for n in eg.LENGTHS]
+    calls = {
+        "crops": lambda: tepose.run_tracklets_from_crops(setup["crops"]),
+        "features": lambda: [{"feats": f} for f in
+                             tepose.extract_features_multi(setup["crops"])],
+        "frames": lambda: hmr2.run_tracklets_from_crops(frames)}
+
+    def runs():
+        out = {}
+        for name, call in calls.items():
+            out[name] = []
+            for _ in range(2):
+                before = dict(E.STAGING_STATS)
+                out[name].append(call())
+                torch.cuda.synchronize()
+                out[name].append(
+                    {k: E.STAGING_STATS[k] - before[k] for k in before})
+        return out
+
+    got = runs()
+
+    def whole(self, r, pieces):
+        flat = np.concatenate([np.asarray(a)[lo:hi] for a, lo, hi in pieces])
+        x = upload(flat, self._replicas[r].device)
+        for i in range(0, len(x), self.crop_batch):
+            yield x[i:i + self.crop_batch]
+
+    monkeypatch.setattr(E.StreamingEngine, "_staged", whole)
+    want = runs()
+    for name in calls:
+        first, stats1, second, stats2 = got[name]
+        assert stats1["chunks"] > 1 and stats1["bytes"] > 0, name
+        assert stats2["ring_allocs"] == 0, name
+        assert stats2["slot_waits"] >= 0 and stats2["slot_wait_s"] >= 0.0
+        for outs in (first, second, want[name][0]):
+            assert len(outs) == len(want[name][2])
+            for o, w in zip(outs, want[name][2]):
+                for k in w:
+                    assert o[k].dtype == w[k].dtype, (name, k)
+                    assert np.array_equal(o[k], w[k]), (name, k)
+
+
 def test_world1_nccl_segment_matches_plain(cuda):
     """The data-parallel segment at world size 1 over NCCL against the
     plain segment, at update rate 0.9 with dropout, both in deterministic

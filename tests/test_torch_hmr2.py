@@ -20,6 +20,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tepose_tpu_torch.models import hmr2 as H
+from tepose_tpu_torch.models.backbone import normalize_crop
 from tepose_tpu_torch.models.hmr2 import HMR2, HMR2Config
 from tepose_tpu_torch.models.smpl import synthetic_smpl_model
 from tepose_tpu_torch.models.vit import ViTConfig
@@ -290,7 +291,8 @@ def test_class_token_position_is_added(m):
 def test_counts_real_crops_and_records_spans(m):
     """`HMR2_STATS` counts the crops and chunks run, no padding: 20 crops
     over super-chunks of 12 and 8 at 4 a chunk; the spans nest under the
-    engine's, in pipeline order."""
+    engine's, in pipeline order, each chunk staged (packed into the ring
+    and its copy launched) before it runs."""
     eng = _engine(m, max_frames_per_call=12)
     before = dict(H.HMR2_STATS)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -301,10 +303,9 @@ def test_counts_real_crops_and_records_spans(m):
                      if e.name.startswith("tepose:")),
                     key=lambda e: e.time_range.start)
     names = [e.name[len("tepose:"):] for e in events]
-    chunk = ["hmr2.backbone", "hmr2.head"]
-    dispatch = ["engine.pack", "engine.upload"]
-    assert names == (["engine.run"] + dispatch + chunk * 3
-                     + ["engine.readback"] + dispatch + chunk * 2
+    chunk = ["engine.pack", "engine.upload", "hmr2.backbone", "hmr2.head"]
+    assert names == (["engine.run"] + chunk * 3
+                     + ["engine.readback"] + chunk * 2
                      + ["engine.readback", "engine.wait", "engine.unpack",
                         "engine.wait", "engine.unpack"])
     for e in events[1:]:
@@ -351,16 +352,18 @@ def test_per_frame_rejections(m):
 
 
 @pytest.fixture(scope="module")
-def route_golden():
+def route_setup():
+    return golden.setup()
+
+
+@pytest.fixture(scope="module")
+def route_golden(route_setup):
     with np.load(golden.GOLDEN_PATH) as f:
         want = {k: f[k] for k in f.files}
-    return want, golden.outputs(golden.setup())
+    return want, golden.outputs(route_setup)
 
 
-@pytest.mark.parametrize("call", ["fused", "fallback", "features",
-                                  "extract", "fused_mesh",
-                                  "features_mesh_f16", "extract_mesh",
-                                  "frames", "frames_mesh"])
+@pytest.mark.parametrize("call", golden.CALLS)
 def test_engine_route_is_bit_identical(route_golden, call):
     """Both routes' outputs, bit for bit, as the engine gave them: the
     TePose route's first four calls from before it gained the per-frame
@@ -371,6 +374,138 @@ def test_engine_route_is_bit_identical(route_golden, call):
     for k in keys:
         assert got[k].dtype == want[k].dtype, k
         assert np.array_equal(got[k], want[k]), k
+
+
+def _layout(a: np.ndarray, layout: str) -> np.ndarray:
+    """A tracklet's crops as a caller might hold them: its own array
+    ("separate"), a view with every other frame of a larger array
+    ("strided"), or ImageNet-normalised on the host ("float32")."""
+    if layout == "strided":
+        big = np.zeros((2 * len(a),) + a.shape[1:], a.dtype)
+        big[::2] = a
+        return big[::2]
+    if layout == "float32":
+        return normalize_crop(torch.from_numpy(a)).numpy()
+    return a
+
+
+def _laid_out(s, layout: str):
+    """The golden's inputs with every tracklet's crops in `layout`, or, for
+    "views", each list of tracklets as views of one flat array."""
+    out = dict(s)
+    for key in ("crops", "long", "frames"):
+        if layout == "views":
+            starts = np.cumsum([0] + [len(c) for c in s[key]])
+            flat = np.concatenate(s[key])
+            out[key] = [flat[a:b] for a, b in zip(starts, starts[1:])]
+        else:
+            out[key] = [_layout(c, layout) for c in s[key]]
+    return out
+
+
+# (golden call, crops' layout, engine arguments replaced, the frames of
+# each replica block staged, in order). The fused and fallback routes give
+# the golden's outputs at other chunk sizes too; extract's super-chunks of
+# 4 hold at most 4 frames, so one super-chunk of 11 at 4 a chunk stages
+# the same chunks, the second straddling the two tracklets
+STAGING = [
+    ("fused", "views", {}, [8, 20]),
+    ("fused", "strided", {}, [8, 20]),
+    ("fused", "float32", {}, [8, 20]),
+    ("fused", "separate", {"crop_batch": 3}, [8, 20]),
+    ("fused", "separate", {"crop_batch": 16}, [8, 20]),
+    ("fallback", "views", {"crop_batch": 5}, [8, 40, 4, 20]),
+    ("fallback", "float32", {}, [8, 40, 4, 20]),
+    ("extract", "views", {}, [4, 4, 3]),
+    ("extract", "float32", {}, [4, 4, 3]),
+    ("extract", "strided", {"crop_batch": 4, "max_frames_per_call": 11},
+     [11]),
+    ("fused_mesh", "views", {}, [8, 20]),
+    ("extract_mesh", "strided", {}, [2, 2, 2, 2, 1, 2]),
+    ("frames", "views", {}, [7, 7, 6]),
+    ("frames", "strided", {}, [7, 7, 6]),
+    ("frames", "float32", {}, [7, 7, 6]),
+    ("frames_mesh", "views", {}, [3, 4, 3, 4, 3, 3]),
+]
+
+
+@pytest.mark.parametrize("call,layout,kw,blocks", STAGING, ids=[
+    f"{c}-{lay}" + "".join(f"-{k}{v}" for k, v in kw.items())
+    for c, lay, kw, _ in STAGING])
+def test_staged_route_is_bit_identical(route_golden, route_setup, call,
+                                       layout, kw, blocks):
+    """Crops staged chunk by chunk through the ring, whatever their layout
+    or dtype, at other chunk sizes, straddling tracklets and over a
+    two-replica mesh, give the golden's outputs bit for bit, twice on one
+    engine; `STAGING_STATS` counts ceil(frames / crop_batch) chunks a
+    replica block, and the second call allocates nothing in the ring."""
+    want, _ = route_golden
+    run = golden.engine_call(_laid_out(route_setup, layout), call, **kw)
+    size = kw.get("crop_batch", 4 if call.startswith("frames") else 8)
+    frame = 3 * 64 * 64 * (4 if layout == "float32" else 1)
+    for n in range(2):
+        before = dict(E.STAGING_STATS)
+        outs = run()
+        grew = {k: E.STAGING_STATS[k] - before[k] for k in before}
+        assert grew["chunks"] == sum(-(-b // size) for b in blocks)
+        assert grew["bytes"] == sum(blocks) * frame
+        if n:
+            assert grew["ring_allocs"] == 0
+        got = {f"{call}/{i}/{k}": v for i, out in enumerate(outs)
+               for k, v in out.items()}
+        assert got.keys() == {k for k in want if k.startswith(call + "/")}
+        for k, v in got.items():
+            assert v.dtype == want[k].dtype and np.array_equal(v, want[k]), k
+
+
+@pytest.mark.parametrize("size,layout,dtype", [
+    (1, "separate", np.uint8), (3, "views", np.uint8),
+    (4, "strided", np.float32), (8, "separate", np.float32),
+    (64, "views", np.uint8)])
+def test_staged_chunks_are_the_frames_in_order(m, size, layout, dtype):
+    """`_staged` yields each frame of its pieces once, in order, in chunks
+    of `crop_batch` (the last shorter), copies that later chunks through
+    the same ring slots leave as they were, from any layout of the
+    tracklets' arrays."""
+    rs = np.random.RandomState(size)
+    arrays = [(rs.rand(n, 3, 5, 4) * 255).astype(dtype) for n in (6, 1, 9)]
+    if layout == "views":
+        flat = np.concatenate(arrays)
+        arrays = [flat[0:6], flat[6:7], flat[7:16]]
+    elif layout == "strided":
+        arrays = [_layout(a, "strided") for a in arrays]
+    pieces = [(arrays[0], 2, 6), (arrays[1], 0, 1), (arrays[2], 0, 9)]
+    eng = _engine(m, crop_batch=size)
+    chunks = list(eng._staged(0, pieces))
+    want = np.concatenate([a[lo:hi] for a, lo, hi in pieces])
+    assert [len(c) for c in chunks] == [
+        min(size, len(want) - a) for a in range(0, len(want), size)]
+    assert np.array_equal(torch.cat(chunks).numpy(), want)
+    assert list(eng._staged(0, [(arrays[0], 3, 3)])) == []
+
+
+def test_replicas_stage_their_chunks_in_turns(m):
+    """On a mesh `_round_robin` stages chunk k of every replica's block
+    before chunk k+1 of any, so no device waits for another's whole block,
+    and returns each block's results in its own order; a block with no
+    frames gives none."""
+    from tepose_tpu_torch.parallel.mesh import make_mesh
+
+    rs = np.random.RandomState(5)
+    a, b = ((rs.rand(n, 3, 5, 4) * 255).astype(np.uint8) for n in (5, 3))
+    eng = _engine(m, crop_batch=2, mesh=make_mesh(devices=["cpu", "cpu"]))
+    order = []
+
+    def run(r, x):
+        order.append((r, len(x)))
+        return r, x.numpy().copy()
+
+    done = eng._round_robin([(0, [(a, 0, 5)]), (1, [(b, 0, 2), (b, 2, 3)]),
+                             (1, [])], run)
+    assert order == [(0, 2), (1, 2), (0, 2), (1, 1), (0, 1)]
+    assert [[r for r, _ in d] for d in done] == [[0, 0, 0], [1, 1], []]
+    assert np.array_equal(np.concatenate([x for _, x in done[0]]), a)
+    assert np.array_equal(np.concatenate([x for _, x in done[1]]), b)
 
 
 # ------------------------------------------------------------- the card

@@ -19,8 +19,21 @@ from tepose_tpu_torch.models.tepose import (
 from tepose_tpu_torch.streaming.engine import StreamingEngine
 from tepose_tpu_torch.utils import profiling
 
-# a bucket of the fused crop path, of the features path, and a drain
-FUSED = ["pack", "pack", "upload", "features", "boot", "scan", "readback"]
+
+# k crop chunks staged and run through the backbone, one after another,
+# and their features joined
+def _chunks(k):
+    return ["pack", "upload", "features"] * k + ["features"]
+
+
+# a bucket of the fused crop path with k chunks (the pseudo-thetas packed
+# and uploaded, the chunks, the features' placement), of the features
+# path, and a drain
+def _fused(k):
+    return (["pack", "upload"] + _chunks(k)
+            + ["features", "boot", "scan", "readback"])
+
+
 STAGED = ["pack", "pack", "upload", "boot", "scan", "readback"]
 DRAIN = ["wait", "unpack"]
 
@@ -31,17 +44,19 @@ def _at(depth, names):
 
 # (depth under the outermost span, name) in the order the spans open
 EXPECTED = {
-    # lengths 8 and 20: buckets of 16 and 32 frames, the second dispatched
-    # before the first is drained
-    "fused": [(0, "engine.run")] + _at(1, FUSED + FUSED + DRAIN + DRAIN),
+    # lengths 8 and 20: buckets of 16 and 32 frames, one and three chunks
+    # of 8 crops, the second dispatched before the first is drained
+    "fused": [(0, "engine.run")] + _at(1, _fused(1) + _fused(3) + DRAIN
+                                       + DRAIN),
     # lengths 8, 44 and 20 at max_frames_per_call 40: the 48-frame bucket
-    # drains the pipeline, then takes the two-stage path (features in two
-    # super-chunks under their own call, then the scan)
-    "fallback": ([(0, "engine.run")] + _at(1, FUSED + DRAIN)
+    # drains the pipeline, then takes the two-stage path (features in
+    # super-chunks of 40 and 4 frames, five chunks and one, under their own
+    # call, then the scan)
+    "fallback": ([(0, "engine.run")] + _at(1, _fused(1) + DRAIN)
                  + [(1, "engine.run")]
-                 + _at(2, ["pack"] + ["upload", "features", "readback"] * 2
-                       + ["unpack"])
-                 + _at(1, STAGED + DRAIN + FUSED + DRAIN)),
+                 + _at(2, _chunks(5) + ["readback"] + _chunks(1)
+                       + ["readback", "unpack"])
+                 + _at(1, STAGED + DRAIN + _fused(3) + DRAIN)),
     # features of lengths 14, 14 and 30: buckets of 16 (two rows) and 32
     "features": [(0, "engine.run")] + _at(1, STAGED + STAGED + DRAIN + DRAIN),
 }

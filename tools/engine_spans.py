@@ -7,9 +7,9 @@ traces it again and prints one JSON object: the slice, busy and idle
 seconds; for each `tepose:<name>` span its count, host seconds, the
 card's idle seconds inside it, the device seconds launched under it, as
 `bench_h100/spans.py` reads them, and the kernels that make them up;
-`fast_scan.GRAPH_STATS`, `hmr2.HMR2_STATS` and the ViT kernel's launches
-over the traced calls; the top device ops and the longest gaps. From the
-repository root, on a machine with a card:
+`fast_scan.GRAPH_STATS`, `hmr2.HMR2_STATS`, `engine.STAGING_STATS` and
+the ViT kernel's launches over the traced calls; the top device ops and
+the longest gaps. From the repository root, on a machine with a card:
 
     python3 tools/engine_spans.py [seed] [--workload NAME]
 
@@ -29,7 +29,7 @@ from bench_h100 import harness, spans  # noqa: E402
 from bench_h100.trace import profiled  # noqa: E402
 from tepose_tpu_torch.models import hmr2  # noqa: E402
 from tepose_tpu_torch.ops import vit_linear  # noqa: E402
-from tepose_tpu_torch.streaming import fast_scan  # noqa: E402
+from tepose_tpu_torch.streaming import engine, fast_scan  # noqa: E402
 
 WORKLOAD = "tepose-engine-crops"
 
@@ -52,6 +52,7 @@ def kernels_under(trace, name: str, n: int = 6) -> list:
 def counters() -> dict:
     return {**{f"graph.{k}": v for k, v in fast_scan.GRAPH_STATS.items()},
             **{f"hmr2.{k}": v for k, v in hmr2.HMR2_STATS.items()},
+            **{f"staging.{k}": v for k, v in engine.STAGING_STATS.items()},
             "vit_linear.launches": vit_linear.LAUNCHES}
 
 

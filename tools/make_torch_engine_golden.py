@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
@@ -93,45 +93,50 @@ def setup() -> Dict:
         hmr2=hmr2_model(), frames=[u8(n) for n in LENGTHS])
 
 
-def outputs(s: Dict) -> Dict[str, np.ndarray]:
-    """Every array the calls return, under `<call>/<tracklet>/<key>`."""
+# the golden's calls: TePose's fused crop path, its two-stage fallback, the
+# features path with a pseudo-theta, `extract_features_multi`, then on a
+# mesh of two CPU devices; the per-frame route on one device and the mesh
+CALLS = ("fused", "fallback", "features", "extract", "fused_mesh",
+         "features_mesh_f16", "extract_mesh", "frames", "frames_mesh")
+
+
+def engine_call(s: Dict, name: str, **kw) -> Callable[[], List[Dict]]:
+    """The golden's call `name` (one of `CALLS`) on one engine, as a
+    function of no arguments that returns the per-tracklet output dicts.
+    `kw` replaces the golden's engine arguments: `crop_batch` 8 (HMR 2.0:
+    4), `window_bucket` 16, `max_frames_per_call` 4096 (fallback 40,
+    extract 4, HMR 2.0 7)."""
     from tepose_tpu_torch.parallel.mesh import make_mesh
     from tepose_tpu_torch.streaming.engine import StreamingEngine
 
-    mesh = make_mesh(devices=["cpu", "cpu"])
+    base = name.split("_mesh")[0]
+    opts = {"mesh": make_mesh(devices=["cpu", "cpu"])} if "_mesh" in name \
+        else {}
+    if base == "frames":
+        eng = StreamingEngine(s["smpl"], s["hmr2"], **{
+            **opts, "crop_batch": 4, "max_frames_per_call": 7, **kw})
+        return lambda: eng.run_tracklets_from_crops(s["frames"])
+    opts.update(crop_batch=8, window_bucket=16,
+                **{"fallback": {"max_frames_per_call": 40},
+                   "extract": {"max_frames_per_call": 4}}.get(base, {}))
+    if name == "features_mesh_f16":
+        opts.update(outputs=("theta", "kp_3d"), output_dtype=torch.float16)
+    eng = StreamingEngine(s["smpl"], s["gen"], s["vibe"], s["bb"],
+                          **{**opts, **kw})
+    if base == "features":
+        return lambda: eng.run_tracklets(s["feats"], [None, s["pseu"], None])
+    if base == "extract":
+        return lambda: [{"feats": f} for f in eng.extract_features_multi(
+            [s["crops"][0][:5], s["crops"][1][:6]])]
+    crops = s["crops"] if base == "fused" else s["long"]
+    return lambda: eng.run_tracklets_from_crops(crops)
 
-    def engine(**kw):
-        return StreamingEngine(s["smpl"], s["gen"], s["vibe"], s["bb"],
-                               crop_batch=8, window_bucket=16, **kw)
 
-    def extract(**kw):
-        return [{"feats": f} for f in
-                engine(max_frames_per_call=4, **kw).extract_features_multi(
-                    [s["crops"][0][:5], s["crops"][1][:6]])]
-
-    def frames(**kw):
-        return StreamingEngine(s["smpl"], s["hmr2"], crop_batch=4,
-                               max_frames_per_call=7, **kw
-                               ).run_tracklets_from_crops(s["frames"])
-
-    calls: Dict[str, List] = {
-        "fused": engine().run_tracklets_from_crops(s["crops"]),
-        "fallback": engine(max_frames_per_call=40).run_tracklets_from_crops(
-            s["long"]),
-        "features": engine().run_tracklets(s["feats"],
-                                           [None, s["pseu"], None]),
-        "extract": extract(),
-        "fused_mesh": engine(mesh=mesh).run_tracklets_from_crops(s["crops"]),
-        "features_mesh_f16": engine(
-            mesh=mesh, outputs=("theta", "kp_3d"),
-            output_dtype=torch.float16).run_tracklets(
-                s["feats"], [None, s["pseu"], None]),
-        "extract_mesh": extract(mesh=mesh),
-        "frames": frames(),
-        "frames_mesh": frames(mesh=mesh),
-    }
-    return {f"{name}/{i}/{k}": v for name, outs in calls.items()
-            for i, out in enumerate(outs) for k, v in out.items()}
+def outputs(s: Dict) -> Dict[str, np.ndarray]:
+    """Every array the calls return, under `<call>/<tracklet>/<key>`."""
+    return {f"{name}/{i}/{k}": v for name in CALLS
+            for i, out in enumerate(engine_call(s, name)())
+            for k, v in out.items()}
 
 
 def main() -> None:
